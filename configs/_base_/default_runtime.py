@@ -15,7 +15,7 @@ resume_from = None
 workflow = [('train', 1)]
 
 # Disable opencv multithreading inside host-side data workers to avoid
-# oversubscribing the cores that feed the TPU.
+# oversubscribing the cores that feed the device.
 opencv_num_threads = 0
 mp_start_method = 'fork'
 auto_scale_lr = dict(enable=False, base_batch_size=16)

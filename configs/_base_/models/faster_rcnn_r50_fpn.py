@@ -1,5 +1,5 @@
 # Faster R-CNN R50-FPN model schema (parity with the reference base model
-# config; consumed by the TPU-native registry — same type names, new impls).
+# config; consumed by this repo's registry — same type names, new impls).
 model = dict(
     type='FasterRCNN',
     backbone=dict(

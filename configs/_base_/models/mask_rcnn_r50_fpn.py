@@ -1,5 +1,5 @@
 # Mask R-CNN R50-FPN model schema (parity with the reference base model
-# config mask_rcnn_r50_fpn.py; mask branch is the TPU-native FCNMaskHead +
+# config mask_rcnn_r50_fpn.py; mask branch is the static-shape FCNMaskHead +
 # box-cropped static-shape gt masks).
 _base_ = './faster_rcnn_r50_fpn.py'
 model = dict(

@@ -14,11 +14,10 @@ def main():
     p.add_argument("config", help="config file")
     p.add_argument("checkpoint", nargs="?", default=None)
     p.add_argument("--out-file", default="demo_result.png")
-    p.add_argument("--device", default="tpu")
     p.add_argument("--score-thr", type=float, default=0.3)
     args = p.parse_args()
 
-    model = init_detector(args.config, args.checkpoint, device=args.device)
+    model = init_detector(args.config, args.checkpoint)
     result = inference_detector(model, args.img)
     show_result_pyplot(model, args.img, result, score_thr=args.score_thr,
                        out_file=args.out_file)

@@ -18,7 +18,6 @@ def main():
     p.add_argument("video", help="video file")
     p.add_argument("config", help="config file")
     p.add_argument("checkpoint", nargs="?", default=None)
-    p.add_argument("--device", default="tpu")
     p.add_argument("--score-thr", type=float, default=0.3)
     p.add_argument("--out", help="output video file")
     p.add_argument("--show", action="store_true")
@@ -26,7 +25,7 @@ def main():
     args = p.parse_args()
     assert args.out or args.show, "specify --out and/or --show"
 
-    model = init_detector(args.config, args.checkpoint, device=args.device)
+    model = init_detector(args.config, args.checkpoint)
     classes = model.CLASSES
 
     cap = cv2.VideoCapture(args.video)

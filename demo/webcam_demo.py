@@ -17,12 +17,11 @@ def main():
     p = argparse.ArgumentParser(description="webcam demo")
     p.add_argument("config", help="config file")
     p.add_argument("checkpoint", nargs="?", default=None)
-    p.add_argument("--device", default="tpu")
     p.add_argument("--camera-id", type=int, default=0)
     p.add_argument("--score-thr", type=float, default=0.5)
     args = p.parse_args()
 
-    model = init_detector(args.config, args.checkpoint, device=args.device)
+    model = init_detector(args.config, args.checkpoint)
     cap = cv2.VideoCapture(args.camera_id)
     assert cap.isOpened(), f"cannot open camera {args.camera_id}"
     print("Press ESC/q to quit")

@@ -2,7 +2,7 @@
 //
 // The reference's evaluation stack leans on native code for its hot inner
 // loops: pycocotools' C COCOeval matcher and mmcv's C IoU routines
-// (SURVEY.md §2.4). This library provides the same primitives for the TPU
+// (SURVEY.md §2.4). This library provides the same primitives for the
 // framework's host-side evaluators (oadg_tpu/core/evaluation/*):
 //
 //   - pairwise IoU (xyxy, optional VOC +1 legacy widths; xywh with COCO

@@ -1,5 +1,5 @@
-"""oadg_tpu: TPU-native object-detection + domain-generalization framework
-(same capability surface as WoojuLee24/OA-DG, built on jax/XLA/pallas).
+"""oadg_tpu: object-detection + domain-generalization framework in JAX
+(same capability surface as WoojuLee24/OA-DG, built on jax/XLA).
 
 Importing the top-level package registers every component (datasets,
 pipelines, models, hooks) so config-driven building works out of the box.

@@ -5,9 +5,9 @@ per-class feature-similarity confusion matrices accumulated over the
 dataset and rendered as matrix plots), ``single_gpu_analyze_feature``
 (:49, capture intermediate feature maps for one batch and dump
 visualizations). The reference routes these through
-``model(..., analysis=...)`` branches inside the detector; the TPU-native
+``model(..., analysis=...)`` branches inside the detector; here the
 shape is a dedicated jitted feature step (GT-RoI embeddings via the RoI
-head's contrastive branch) plus flax ``capture_intermediates`` for the
+head's contrastive branch) plus ``capture_intermediates`` for the
 layer captures — the same channels FeatureHook / WandbLogger consume.
 """
 from __future__ import annotations
@@ -166,7 +166,7 @@ def single_gpu_analyze_feature(model_state, data_loader,
                                show_dir: Optional[str] = None
                                ) -> Dict[str, Any]:
     """Capture intermediate feature maps for ONE batch (reference
-    apis/test.py:49 runs a single batch with analysis='feature') via flax
+    apis/test.py:49 runs a single batch with analysis='feature') via
     capture_intermediates and optionally dump channel-mean heatmaps.
 
     Returns {layer_path: np.ndarray} of captured activations — the same

@@ -36,7 +36,7 @@ class DetectorHandle:
 
 
 def init_detector(config: Union[str, Config], checkpoint: Optional[str] = None,
-                  device: str = "tpu", cfg_options=None) -> DetectorHandle:
+                  cfg_options=None) -> DetectorHandle:
     if isinstance(config, str):
         config = Config.fromfile(config)
     if cfg_options:

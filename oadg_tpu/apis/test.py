@@ -75,14 +75,14 @@ def single_gpu_test(model_state, data_loader, show=False, out_dir=None,
 
 def collect_results_allgather(results, indices, dataset_len: int,
                               num_classes: int) -> List[List[np.ndarray]]:
-    """Cross-process result collection — the TPU-native replacement for the
+    """Cross-process result collection — the JAX replacement for the
     reference's tmpdir pickle exchange (``collect_results_cpu``,
     mmdet/apis/test.py:589):
 
     1. encode this rank's detections as a flat float32 row table
        ``[ds_index, cls, score, x1, y1, x2, y2]`` plus one presence marker
        row (cls = -1) per processed image;
-    2. pad to the global max row count and all-gather over the ICI
+    2. pad to the global max row count and all-gather across processes
        (``multihost_utils.process_allgather`` — XLA collective, no shared
        filesystem needed);
     3. decode rank-major and restore dataset order; duplicate indices from

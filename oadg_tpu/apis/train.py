@@ -52,12 +52,31 @@ def _static_hw_from_pipeline(pipeline, divisor: int = 32):
     return (rnd(short_edge), rnd(long_edge))
 
 
+def data_parallel_devices(samples_per_gpu: int, gpu_ids=None):
+    """The devices a training run spans and the loader batch of this
+    process: every device takes ``samples_per_gpu`` images (the
+    reference's per-GPU batch), so the global batch is ``samples_per_gpu``
+    x the device count. ``gpu_ids`` (reference ``cfg.gpu_ids``) restricts
+    a single-process run to those devices."""
+    if samples_per_gpu < 1:
+        raise ValueError(f"samples_per_gpu must be >= 1, got "
+                         f"{samples_per_gpu}")
+    devices = jax.devices()
+    if gpu_ids is not None:
+        if jax.process_count() > 1:
+            raise ValueError("gpu_ids selects devices of a single-process "
+                             "run")
+        devices = [devices[i] for i in gpu_ids]
+    local = sum(d.process_index == jax.process_index() for d in devices)
+    return devices, samples_per_gpu * local
+
+
 def train_detector(detector, dataset, cfg, distributed: bool = False,
                    validate: bool = False, timestamp=None, meta=None,
                    num_views: int = 1, work_dir: Optional[str] = None):
     """Build everything and run the training loop.
 
-    ``detector`` is the linen module from build_detector; ``dataset`` the
+    ``detector`` is the module from build_detector; ``dataset`` the
     built train dataset (or cfg dict).
     """
     work_dir = work_dir or cfg.get("work_dir", "./work_dirs/default")
@@ -72,9 +91,13 @@ def train_detector(detector, dataset, cfg, distributed: bool = False,
     pipeline = (train_data_cfg.get("pipeline")
                 or dict(train_data_cfg.get("dataset", {})).get("pipeline"))
     static_hw = _static_hw_from_pipeline(pipeline)
+    gpu_ids = cfg.get("gpu_ids")
+    devices, local_batch = data_parallel_devices(
+        int(data_cfg.get("samples_per_gpu", 2)),
+        None if gpu_ids is None else list(gpu_ids))
     loader = build_dataloader(
         dataset,
-        samples_per_gpu=int(data_cfg.get("samples_per_gpu", 2)),
+        samples_per_gpu=local_batch,
         workers_per_gpu=int(data_cfg.get("workers_per_gpu", 2)),
         seed=cfg.get("seed", 0), static_hw=static_hw,
         max_gt=int(cfg.get("max_gt", 128)))
@@ -92,20 +115,11 @@ def train_detector(detector, dataset, cfg, distributed: bool = False,
         logger.info("OA-Mix runs on-device inside the train step")
 
     mesh = None
-    if distributed or len(jax.devices()) > 1:
-        import math
-        # global batch = per-process samples_per_gpu x process_count
-        # (reference semantics: samples_per_gpu is per-rank)
-        bs = (int(data_cfg.get("samples_per_gpu", 2))
-              * jax.process_count())
-        n_data = math.gcd(bs, len(jax.devices()))
-        if n_data > 1:
-            mesh = make_mesh(n_data=n_data)
-            logger.info(f"data-parallel mesh over {mesh.devices.size} devices"
-                        f" across {jax.process_count()} process(es)")
-        else:
-            logger.info(f"batch size {bs} not divisible across "
-                        f"{len(jax.devices())} devices; running single-device")
+    if devices != jax.devices()[:1]:
+        mesh = make_mesh(n_data=len(devices), devices=devices)
+        logger.info(f"data-parallel mesh over {len(devices)} devices across "
+                    f"{jax.process_count()} process(es), "
+                    f"{local_batch} images per step from this process")
 
     val_dataset = val_loader = None
     if validate:

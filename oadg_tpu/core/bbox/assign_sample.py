@@ -26,9 +26,9 @@ def topk_large(scores: jnp.ndarray, k: int, rows: int = 64):
     row winners: every global top-k element is inside its own row's top-k,
     so the result is EXACTLY ``lax.top_k(scores, k)`` — including tie order
     (top_k breaks value ties by ascending index; rows are row-major slices,
-    so (row, within-row rank) order equals global index order). Measured
-    ~7x faster than the single-stage top_k at n=524k/k=256 on a v5e (the
-    single-stage partial sort touches the full array per step).
+    so (row, within-row rank) order equals global index order). The
+    single-stage partial sort touches the full array per step; the
+    two-stage form touches it once.
 
     Falls back to plain top_k when n is small or k too large for a row.
 
@@ -630,7 +630,7 @@ class RegionAssigner:
     CascadeRPNHead consumes an inline fused variant
     (models/dense_heads/cascade_rpn_head.py:_region_targets); this
     standalone form serves direct use and config-built assigner
-    pipelines.  TPU-native shape contract: ``gt_bboxes`` is the padded
+    pipelines.  Static-shape contract: ``gt_bboxes`` is the padded
     (G, 4) array with ``gt_valid`` mask; the reference's sequential
     per-gt overwrite order is reproduced exactly by a fori_loop over the
     static gt slots (later gts overwrite earlier ones — order matters,

@@ -1,7 +1,7 @@
 """Matrix NMS (SOLO) and Fast NMS (YOLACT) — static-shape jnp.
 
 Both algorithms are already matrix-parallel in the reference (they were
-designed to avoid sequential greedy NMS), so they map to the TPU
+designed to avoid sequential greedy NMS), so they map to XLA
 directly; only the dynamic filtering becomes masked static sorts.
 
 Parity targets:

@@ -1,9 +1,9 @@
-"""Padded, jit-safe NMS for TPU (replaces mmcv.ops.nms CUDA kernels).
+"""Padded, jit-safe NMS (replaces mmcv.ops.nms CUDA kernels).
 
 The reference calls CUDA ``nms``/``batched_nms`` from RPN proposal generation
 (mmdet/models/dense_heads/rpn_head.py:231) and ``multiclass_nms``
 (mmdet/core/post_processing/bbox_nms.py:8). Sequential greedy NMS does not map
-to TPU; we use the tiled suppression algorithm (as in TF's
+to a static-shape XLA program; we use the tiled suppression algorithm (as in TF's
 ``non_max_suppression_padded``): process score-sorted boxes in tiles; each tile
 is first suppressed by previously resolved tiles with one matrix op, then
 resolved internally by iterating a self-suppression fixpoint that provably

@@ -1,6 +1,6 @@
 """Dataset/dataloader builders (reference mmdet/datasets/builder.py:58,86).
 
-TPU-native loader design: instead of torch DataLoader + DataContainer
+Loader design: instead of torch DataLoader + DataContainer
 collate + per-rank DistributedGroupSampler, a thread-pool prefetcher
 assembles STATIC-SHAPE numpy batches (images padded to a fixed bucket, GT
 padded to ``max_gt`` with validity masks) that jit directly. Aspect-ratio

@@ -19,7 +19,6 @@ from __future__ import annotations
 import copy
 from typing import Any, Dict, List, Optional
 
-import cv2
 import numpy as np
 
 from ...utils.registry import PIPELINES
@@ -62,8 +61,9 @@ class ShiftScaleRotate(_AlbuOp):
     bboxes map through the same matrix corner-wise (enclosing box)."""
 
     def __init__(self, shift_limit=0.0625, scale_limit=0.1, rotate_limit=45,
-                 interpolation=cv2.INTER_LINEAR,
-                 border_mode=cv2.BORDER_REFLECT_101, value=None, p=0.5):
+                 interpolation=1, border_mode=4, value=None, p=0.5):
+        # 1, 4: cv2.INTER_LINEAR, cv2.BORDER_REFLECT_101 (cv2 is imported
+        # only where an op runs)
         super().__init__(p)
         self.shift_limit = _to_tuple(shift_limit)
         self.scale_limit = _to_tuple(scale_limit)
@@ -79,6 +79,7 @@ class ShiftScaleRotate(_AlbuOp):
         self.dy = np.random.uniform(*self.shift_limit)
 
     def _matrix(self, h, w):
+        import cv2
         m = cv2.getRotationMatrix2D((w / 2 - 0.5, h / 2 - 0.5),
                                     self.angle, self.scale)
         m[0, 2] += self.dx * w
@@ -86,6 +87,7 @@ class ShiftScaleRotate(_AlbuOp):
         return m
 
     def apply(self, img):
+        import cv2
         h, w = img.shape[:2]
         return cv2.warpAffine(img, self._matrix(h, w), (w, h),
                               flags=self.interpolation,
@@ -159,6 +161,7 @@ class HueSaturationValue(_AlbuOp):
         self.val = np.random.uniform(*self.val_shift_limit)
 
     def apply(self, img):
+        import cv2
         hsv = cv2.cvtColor(img.astype(np.uint8),
                            cv2.COLOR_BGR2HSV).astype(np.float32)
         hsv[..., 0] = (hsv[..., 0] + self.hue) % 180
@@ -187,16 +190,19 @@ class Blur(_AlbuOp):
         self.ksize = int(np.random.choice(np.arange(lo | 1, hi + 1, 2)))
 
     def apply(self, img):
+        import cv2
         return cv2.blur(img, (self.ksize, self.ksize))
 
 
 class MedianBlur(Blur):
     def apply(self, img):
+        import cv2
         return cv2.medianBlur(np.ascontiguousarray(img), self.ksize)
 
 
 class ToGray(_AlbuOp):
     def apply(self, img):
+        import cv2
         g = cv2.cvtColor(img.astype(np.uint8), cv2.COLOR_BGR2GRAY)
         return np.stack([g] * 3, -1).astype(img.dtype)
 
@@ -215,6 +221,7 @@ class JpegCompression(_AlbuOp):
         self.q = int(np.random.randint(self.quality[0], self.quality[1] + 1))
 
     def apply(self, img):
+        import cv2
         ok, buf = cv2.imencode(".jpg", img.astype(np.uint8),
                                [cv2.IMWRITE_JPEG_QUALITY, self.q])
         return cv2.imdecode(buf, cv2.IMREAD_COLOR).astype(img.dtype)

@@ -1,6 +1,6 @@
 """AugMix pipeline op (reference mmdet/datasets/pipelines/augmix.py:220).
 
-Host-side (numpy/PIL-free) implementation of the standalone AugMix class:
+Host-side (numpy/cv2/PIL) implementation of the standalone AugMix class:
 multi-view (`img2..imgN`), ``no_jsd`` single-view, and ``copy`` modes. Uses
 the same op families as the reference's `augmentations` lists, implemented
 with the in-repo numpy/cv2 equivalents (the heavy OA-Mix path runs
@@ -12,13 +12,6 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import numpy as np
-
-try:
-    import cv2
-except ImportError:                                  # pragma: no cover
-    cv2 = None
-
-from PIL import Image, ImageEnhance, ImageOps
 
 from ...utils.registry import PIPELINES
 
@@ -36,24 +29,29 @@ def _float_param(level, maxval):
 
 
 def _autocontrast(img, level, img_size):
+    from PIL import Image, ImageOps
     return np.asarray(ImageOps.autocontrast(Image.fromarray(img)))
 
 
 def _equalize(img, level, img_size):
+    from PIL import Image, ImageOps
     return np.asarray(ImageOps.equalize(Image.fromarray(img)))
 
 
 def _posterize(img, level, img_size):
+    from PIL import Image, ImageOps
     bits = 4 - _int_param(_sample_level(level), 4)
     return np.asarray(ImageOps.posterize(Image.fromarray(img), max(bits, 1)))
 
 
 def _solarize(img, level, img_size):
+    from PIL import Image, ImageOps
     thr = 256 - _int_param(_sample_level(level), 256)
     return np.asarray(ImageOps.solarize(Image.fromarray(img), thr))
 
 
 def _rotate(img, level, img_size):
+    import cv2
     deg = _int_param(_sample_level(level), 30)
     if np.random.uniform() > 0.5:
         deg = -deg
@@ -62,6 +60,7 @@ def _rotate(img, level, img_size):
 
 
 def _shear_x(img, level, img_size):
+    import cv2
     s = _float_param(_sample_level(level), 0.3)
     if np.random.uniform() > 0.5:
         s = -s
@@ -70,6 +69,7 @@ def _shear_x(img, level, img_size):
 
 
 def _shear_y(img, level, img_size):
+    import cv2
     s = _float_param(_sample_level(level), 0.3)
     if np.random.uniform() > 0.5:
         s = -s
@@ -78,6 +78,7 @@ def _shear_y(img, level, img_size):
 
 
 def _translate_x(img, level, img_size):
+    import cv2
     t = _int_param(_sample_level(level), img_size[0] / 3)
     if np.random.random() > 0.5:
         t = -t
@@ -86,6 +87,7 @@ def _translate_x(img, level, img_size):
 
 
 def _translate_y(img, level, img_size):
+    import cv2
     t = _int_param(_sample_level(level), img_size[1] / 3)
     if np.random.random() > 0.5:
         t = -t
@@ -93,9 +95,11 @@ def _translate_y(img, level, img_size):
     return cv2.warpAffine(img, m, img_size)
 
 
-def _enh(cls):
+def _enh(name):
     def fn(img, level, img_size):
+        from PIL import Image, ImageEnhance
         f = _float_param(_sample_level(level), 1.8) + 0.1
+        cls = getattr(ImageEnhance, name)
         return np.asarray(cls(Image.fromarray(img)).enhance(f))
     return fn
 
@@ -103,11 +107,11 @@ def _enh(cls):
 _AUGMENTATIONS = [_autocontrast, _equalize, _posterize, _rotate, _solarize,
                   _shear_x, _shear_y, _translate_x, _translate_y]
 _AUGMENTATIONS_ALL = _AUGMENTATIONS + [
-    _enh(ImageEnhance.Color), _enh(ImageEnhance.Contrast),
-    _enh(ImageEnhance.Brightness), _enh(ImageEnhance.Sharpness)]
+    _enh("Color"), _enh("Contrast"),
+    _enh("Brightness"), _enh("Sharpness")]
 _WO_TRANS = [_autocontrast, _equalize, _posterize, _solarize,
-             _enh(ImageEnhance.Color), _enh(ImageEnhance.Contrast),
-             _enh(ImageEnhance.Brightness), _enh(ImageEnhance.Sharpness)]
+             _enh("Color"), _enh("Contrast"),
+             _enh("Brightness"), _enh("Sharpness")]
 _WO_GEO = [_autocontrast, _equalize, _posterize, _solarize]
 
 

@@ -39,7 +39,7 @@ class Compose:
 class DefaultFormatBundle:
     """Keep images HWC float32; ensure gt arrays are well-typed. The
     reference converts to CHW torch tensors here (formating.py:218-233);
-    NHWC is the TPU-native layout so images stay as-is."""
+    NHWC is the layout the models use, so images stay as-is."""
 
     def __init__(self, img_to_float: bool = True, pad_val=None):
         self.img_to_float = img_to_float

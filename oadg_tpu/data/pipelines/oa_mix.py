@@ -1,10 +1,10 @@
-"""OAMix pipeline op — TPU-native split of the reference's CPU augmentation.
+"""OAMix pipeline op — an on-device split of the reference's CPU augmentation.
 
 The reference runs the full OA-Mix algorithm per sample inside dataloader
 worker processes (reference mmdet/datasets/pipelines/oa_mix.py:187-243);
 SURVEY.md §3.1 identifies that CPU loop as the throughput bottleneck.
 
-TPU-native design: this pipeline op does NOT augment. It records the OA-Mix
+Design: this pipeline op does NOT augment. It records the OA-Mix
 configuration and view bookkeeping on the sample; the batched augmentation
 (multi-view chain-and-mix, saliency gating, object-aware mixing) runs
 on-device as fused XLA kernels over the whole batch
@@ -79,8 +79,8 @@ class OAMix:
         # augment raw [0,255] pixels exactly like the reference does before
         # its Normalize step (reference pipeline order, SURVEY.md §3.2).
         #
-        # Host-cost contract (measured: Normalize was 102 of the host
-        # pipeline's 126 ms/sample): ``norm_on_device`` tells the
+        # Host-cost contract (Normalize is the largest host pipeline
+        # cost): ``norm_on_device`` tells the
         # downstream Normalize to skip the pixel math (the device
         # preprocess normalizes BOTH the clean view and the aug views
         # on-chip from img_raw), and the placeholder views stay OUT of

@@ -13,13 +13,6 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-try:
-    import cv2
-except ImportError:                                  # pragma: no cover
-    cv2 = None
-
-from PIL import Image, ImageEnhance, ImageOps
-
 
 # ------------------------------------------------------------- helpers -----
 
@@ -40,6 +33,7 @@ def _hard_mask(box, shape):
 
 def _blurred_mask(box, shape, spatial_ratio=4, sigma_ratio=0.3):
     """Quarter-res blurred box mask (reference oa_mix.py:74-93)."""
+    import cv2
     h, w = shape[:2]
     x1, y1, x2, y2 = (np.asarray(box) // spatial_ratio).astype(np.int32)
     m = np.zeros((h // spatial_ratio, w // spatial_ratio, 3), np.float32)
@@ -69,6 +63,7 @@ def _spectral_saliency_map(crop) -> np.ndarray:
     min-max), and resizes the map back to the crop size
     (INTER_LINEAR_EXACT both directions) before the caller's mean.
     """
+    import cv2
     img = np.asarray(crop, np.uint8)
     g = img if img.ndim == 2 else cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
     g = cv2.resize(g, (64, 64), interpolation=cv2.INTER_LINEAR_EXACT)
@@ -138,10 +133,12 @@ def _random_regions(shape, scale, ratio, num_bboxes, existing=None,
 # ----------------------------------------------------------------- ops -----
 
 def _pil(img):
+    from PIL import Image
     return Image.fromarray(np.asarray(img, np.uint8), "RGB")
 
 
 def _photo(img, name, severity, level=None):
+    from PIL import ImageEnhance, ImageOps
     p = _pil(img)
     if name == "autocontrast":
         return np.asarray(ImageOps.autocontrast(p))
@@ -170,6 +167,7 @@ def _geo_matrix(name, severity, center, size_for_level, img_size,
     """Forward cv2 matrix for one geometric family draw. ``level``/
     ``sign`` inject the two np.random draws (shared-draw-table parity
     tests); None keeps the reference RNG stream untouched."""
+    import cv2
     if name == "rotate":
         lvl = _sample_level(severity) if level is None else level
         deg = int(lvl * 30 / 10)
@@ -221,6 +219,7 @@ def _bboxes_only(img, name, severity, fg_boxes, fg_masks, levels=None,
     (each _apply_bbox_only_augmentation call returns uint8) — float
     accumulation here drifted the composed golden test by +-1 per box.
     ``levels``/``signs`` are per-box injected draws."""
+    import cv2
     out = np.asarray(img, np.uint8)
     h, w = out.shape[:2]
     fam = _pick_family(name, coin)
@@ -241,6 +240,7 @@ def _bboxes_only(img, name, severity, fg_boxes, fg_masks, levels=None,
 def _bg_only(img, name, severity, fg_masks, level=None, sign=None,
              coin=None):
     """Global warp with fg regions preserved (bbox_augmentation.py:240-272)."""
+    import cv2
     arr = np.asarray(img, np.uint8)
     h, w = arr.shape[:2]
     fam = _pick_family(name, coin)

@@ -147,9 +147,8 @@ class Normalize:
         if results.get("norm_on_device"):
             # on-device OA-Mix path: the device preprocess normalizes the
             # clean view AND the aug views on-chip from the raw uint8
-            # batch (engine/preprocess.py) — the host math here (102 ms
-            # per 2048x1024 sample, the largest host pipeline cost) is
-            # skipped and pixels stay uint8 through collate.
+            # batch (engine/preprocess.py) — the host math here (the
+            # largest host pipeline cost) is skipped and pixels stay uint8 through collate.
             return results
         inv_std = (1.0 / self.std).astype(np.float32)
         for key in results.get("img_fields", ["img"]):

@@ -1,7 +1,7 @@
 """Sampler API parity (reference mmdet/datasets/samplers/): GroupSampler,
 DistributedGroupSampler, InfiniteBatchSampler families.
 
-The TPU loader (data/builder.py PrefetchLoader) implements aspect-ratio
+The loader (data/builder.py PrefetchLoader) implements aspect-ratio
 group batching natively; these classes expose the reference's sampler
 interface for code that builds samplers directly. 'Distributed' variants
 shard by (rank, world) — on a jax mesh a single process usually feeds every

@@ -51,11 +51,11 @@ class Checkpointer:
         self._ckptr = ocp.PyTreeCheckpointer()
 
     def save(self, state: Dict[str, Any], step: int):
-        import flax.serialization as fser
+        from ..utils.checkpoint import to_state_dict
         path = os.path.join(self.dir, f"epoch_{step}")
         # to_state_dict flattens optax NamedTuples into plain dicts that
         # orbax round-trips losslessly; restore() re-inflates via a template
-        self._ckptr.save(path, fser.to_state_dict(state), force=True)
+        self._ckptr.save(path, to_state_dict(state), force=True)
         with open(os.path.join(self.dir, "latest"), "w") as f:
             f.write(f"epoch_{step}")
 
@@ -176,10 +176,10 @@ class EpochBasedRunner:
     def resume(self, path: Optional[str] = None, auto: bool = False):
         state = self.ckpt.restore(path) if (path or auto) else None
         if state is not None:
-            import flax.serialization as fser
+            from ..utils.checkpoint import from_state_dict
             template = dict(params=self.params, batch_stats=self.batch_stats,
                             opt_state=self.opt_state, epoch=0, iter=0)
-            state = fser.from_state_dict(template, state)
+            state = from_state_dict(template, state)
             self.params = state["params"]
             self.batch_stats = state.get("batch_stats")
             self.opt_state = state["opt_state"]

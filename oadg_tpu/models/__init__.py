@@ -1,4 +1,4 @@
-"""Model zoo: backbones, necks, heads, losses, detectors (flax.linen)."""
+"""Model zoo: backbones, necks, heads, losses, detectors (oadg_tpu.nn modules)."""
 from . import layers  # noqa: F401
 from .backbones import (csp_darknet, darknet, detectors_resnet,  # noqa: F401
                         hourglass, hrnet, mobilenet_v2, pvt, regnet,

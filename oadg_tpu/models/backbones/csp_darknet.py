@@ -1,5 +1,5 @@
 """CSPDarknet backbone (reference mmdet/models/backbones/csp_darknet.py:
-YOLOX's backbone) — flax NHWC, SiLU activations, live BN (norm_eval=False).
+YOLOX's backbone) — NHWC, SiLU activations, live BN (norm_eval=False).
 
 Includes the shared CSPLayer (reference mmdet/models/utils/csp_layer.py)
 used by YOLOXPAFPN as well.
@@ -8,10 +8,10 @@ from __future__ import annotations
 
 from typing import Any, Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from ... import nn
 from ...utils.registry import BACKBONES
 from ..layers import FrozenBN
 

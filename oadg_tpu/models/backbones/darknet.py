@@ -7,8 +7,8 @@ from __future__ import annotations
 
 from typing import Any, Sequence
 
-import flax.linen as nn
 
+from ... import nn
 from ...utils.registry import BACKBONES
 from ..layers import ConvModule, norm_eval_cfg
 

@@ -11,10 +11,10 @@ from __future__ import annotations
 
 from typing import Any, Optional, Sequence
 
-import flax.linen as nn
 import jax.lax as lax
 import jax.numpy as jnp
 
+from ... import nn
 from ...utils.registry import BACKBONES
 from ..layers import Conv, build_norm, max_pool_3x3_s2, norm_eval_cfg
 from .resnet import ARCH, Bottleneck

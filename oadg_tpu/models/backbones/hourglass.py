@@ -6,9 +6,9 @@ from __future__ import annotations
 
 from typing import Any, Optional, Sequence
 
-import flax.linen as nn
 import jax.numpy as jnp
 
+from ... import nn
 from ...utils.registry import BACKBONES
 from ..layers import Conv, ConvModule, build_norm
 from .resnet import BasicBlock

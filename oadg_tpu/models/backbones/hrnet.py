@@ -10,9 +10,9 @@ from __future__ import annotations
 
 from typing import Any, Optional, Sequence
 
-import flax.linen as nn
 import jax.numpy as jnp
 
+from ... import nn
 from ...utils.registry import BACKBONES
 from ..layers import Conv, build_norm, norm_eval_cfg
 from .resnet import BasicBlock, Bottleneck

@@ -1,16 +1,16 @@
 """MobileNetV2 backbone (reference mmdet/models/backbones/mobilenet_v2.py:
-inverted-residual stages with out_indices taps) — flax NHWC.
+inverted-residual stages with out_indices taps) — NHWC.
 
-Depthwise convs use linen's feature_group_count; BN runs in frozen
+Depthwise convs use nn.Conv's feature_group_count; BN runs in frozen
 (inference-stats) mode like the rest of the detection backbones here.
 """
 from __future__ import annotations
 
 from typing import Any, Sequence
 
-import flax.linen as nn
 import jax.numpy as jnp
 
+from ... import nn
 from ...utils.registry import BACKBONES
 from ..layers import FrozenBN
 

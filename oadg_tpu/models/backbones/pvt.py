@@ -2,7 +2,7 @@
 mmdet/models/backbones/pvt.py: PyramidVisionTransformer,
 PyramidVisionTransformerV2).
 
-TPU-native: attention is batched dense matmul on the MXU (no windowing
+Attention is one batched dense matmul (no windowing
 needed — SRA reduces K/V spatially by sr_ratio so the score matrix stays
 small); LayerNorm in fp32; NHWC feature maps between stages.
 
@@ -14,10 +14,10 @@ from __future__ import annotations
 
 from typing import Any, Optional, Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from ... import nn
 from ...ops.image_ops import resize_bilinear
 from ...utils.registry import BACKBONES
 from ..layers import Conv

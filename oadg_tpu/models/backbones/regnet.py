@@ -5,10 +5,10 @@ from __future__ import annotations
 
 from typing import Any, Sequence
 
-import flax.linen as nn
 import jax.numpy as jnp
 import numpy as np
 
+from ... import nn
 from ...utils.registry import BACKBONES
 from ..layers import Conv, FrozenBN, build_norm
 

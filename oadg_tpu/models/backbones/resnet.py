@@ -1,4 +1,4 @@
-"""ResNet backbone family (flax.linen, NHWC).
+"""ResNet backbone family (NHWC).
 
 Same capability surface as the reference backbone
 (mmdet/models/backbones/resnet.py:306): depths 18/34/50/101/152,
@@ -7,7 +7,7 @@ per-stage strides/dilations (the DC5 variant uses strides=(1,2,2,1),
 dilations=(1,1,1,2), reference configs/_base_/models/faster_rcnn_r50_caffe_dc5.py:9),
 ``out_indices``, ``deep_stem``, ``avg_down``, and ``frozen_stages``.
 
-TPU-native differences:
+Differences:
 - NHWC layout with bf16-friendly compute; BN is frozen-statistics affine
   (see models/layers.py) matching ``norm_eval=True`` training.
 - ``frozen_stages`` does not gate module construction — freezing is a
@@ -19,10 +19,10 @@ from __future__ import annotations
 
 from typing import Any, Optional, Sequence, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from ... import nn
 from ...utils.registry import BACKBONES
 from ..layers import Conv, build_norm, max_pool_3x3_s2, norm_eval_cfg
 
@@ -33,8 +33,8 @@ def conv_norm(x, feats, k, s, p, norm, dtype, cname, *, dilation=1,
 
     Frozen BN (``norm_eval=True``) is a pure per-channel affine, so
     conv(x, K)*w + b == conv(x, K*w) + b exactly; folding it removes the
-    two full-activation HBM passes (mul+add, plus their backward
-    reductions) that profiled at ~28 ms/step on the flagship. Falls back
+    two full-activation memory passes (mul+add, plus their backward
+    reductions). Falls back
     to the plain conv->norm sequence for live BN. Param paths and
     creation order are identical in both branches (FrozenBN auto-numbering
     is by instantiation order, preserved here), so checkpoints, the torch
@@ -178,10 +178,10 @@ class ResNet(nn.Module):
                                     and block is Bottleneck) else None)
                 kw = {} if block is BasicBlock else {"dcn": dcn}
                 # with_cp: the reference wraps each block in
-                # torch.utils.checkpoint (resnet.py:87); the TPU-native
+                # torch.utils.checkpoint (resnet.py:87); the JAX
                 # form is nn.remat — activations recompute in the backward
-                # pass, trading FLOPs for HBM (enables larger per-chip
-                # batches; e.g. batch 8 at 1024x2048 OOMs without it)
+                # pass, trading FLOPs for device memory (enables larger
+                # per-device batches)
                 cls = nn.remat(block) if self.with_cp else block
                 x = cls(planes, stride, self.dilations[i], downsample,
                         self.style, ncfg,
@@ -213,28 +213,27 @@ class BottleneckX(nn.Module):
 
     @nn.compact
     def __call__(self, x):
-        import flax.linen as fnn
         width = int(self.planes * (self.base_width / 64.0)) * self.groups
         s1, s2 = (self.stride, 1) if self.style == "caffe" else (1, self.stride)
         norm = build_norm(self.norm_cfg or dict(type="BN"), self.dtype)
         identity = x
         out = conv_norm(x, width, 1, s1, 0, norm, self.dtype, "conv1")
-        out = fnn.relu(out)
+        out = nn.relu(out)
         p = self.dilation
-        out = fnn.Conv(width, (3, 3), strides=(s2, s2),
+        out = nn.Conv(width, (3, 3), strides=(s2, s2),
                        padding=[(p, p), (p, p)],
                        kernel_dilation=(p, p),
                        feature_group_count=self.groups, use_bias=False,
                        dtype=self.dtype, name="conv2")(out)
         out = norm()(out)
-        out = fnn.relu(out)
+        out = nn.relu(out)
         out = conv_norm(out, self.planes * 4, 1, 1, 0, norm, self.dtype,
                         "conv3")
         if self.downsample:
             identity = conv_norm(x, self.planes * 4, 1, self.stride, 0, norm,
                                  self.dtype, "downsample_conv",
                                  bn_name="downsample_bn")
-        return fnn.relu(out + identity)
+        return nn.relu(out + identity)
 
 
 @BACKBONES.register_module()
@@ -246,13 +245,12 @@ class ResNeXt(ResNet):
 
     @nn.compact
     def __call__(self, x):
-        import flax.linen as fnn
         _, stage_blocks = ARCH[self.depth]
         ncfg = norm_eval_cfg(self.norm_cfg, self.norm_eval)
         norm = build_norm(ncfg, self.dtype)
         x = conv_norm(x, self.stem_channels, 7, 2, 3, norm, self.dtype,
                       "conv1")
-        x = fnn.relu(x)
+        x = nn.relu(x)
         x = max_pool_3x3_s2(x)
         if self.frozen_stages >= 0:
             x = jax.lax.stop_gradient(x)

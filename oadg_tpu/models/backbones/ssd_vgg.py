@@ -1,15 +1,15 @@
 """SSD-VGG16 backbone (reference mmdet/models/backbones/ssd_vgg.py:14):
 VGG-16 conv trunk with ceil-mode pools, conv6/conv7 dilated head, L2Norm on
-conv4_3, and the SSD extra-conv pyramid — flax NHWC.
+conv4_3, and the SSD extra-conv pyramid — NHWC.
 """
 from __future__ import annotations
 
 from typing import Any, Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from ... import nn
 from ...utils.registry import BACKBONES
 
 

@@ -1,23 +1,23 @@
 """Swin Transformer backbone (reference mmdet/models/backbones/swin.py:
-SwinTransformer — P2 backbone surface), TPU-native flax.
+SwinTransformer — P2 backbone surface).
 
 Design notes (vs the reference's torch implementation):
 - Window attention is batched as one big (num_windows*B, 49, C) attention —
-  a single large matmul chain on the MXU rather than per-window loops.
+  a single large matmul chain rather than per-window loops.
 - The shifted-window mask is computed from static shapes at trace time
   (numpy), so the whole stage is one fused XLA program; `jnp.roll` performs
-  the cyclic shift (an ICI-free on-chip permute).
+  the cyclic shift (an on-device permute).
 - Feature maps stay NHWC; patch merging is a reshape+concat+dense.
 """
 from __future__ import annotations
 
 from typing import Any, Optional, Sequence, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ... import nn
 from ...utils.registry import BACKBONES
 
 

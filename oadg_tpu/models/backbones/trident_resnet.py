@@ -1,6 +1,6 @@
 """TridentNet ResNet (reference mmdet/models/backbones/trident_resnet.py):
 the final stage becomes weight-shared multi-branch with per-branch
-dilations (1, 2, 3). TPU-native: branches are folded onto the batch
+dilations (1, 2, 3). Here the branches are folded onto the batch
 dimension (weights shared by construction), so the trident stage is one
 dense conv per dilation on the shared input — no parameter duplication.
 
@@ -11,9 +11,9 @@ from __future__ import annotations
 
 from typing import Any, Optional, Sequence
 
-import flax.linen as nn
 import jax.numpy as jnp
 
+from ... import nn
 from ...utils.registry import BACKBONES
 from ..layers import Conv, build_norm, norm_eval_cfg
 from .resnet import ARCH, Bottleneck, ResNet

@@ -25,7 +25,7 @@ def build_loss(cfg):
 
 def build_detector(cfg, train_cfg=None, test_cfg=None, num_views: int = 1,
                    dtype=None):
-    """Build a detector linen module from an mmdet-style config dict.
+    """Build a detector module from an mmdet-style config dict.
 
     ``train_cfg``/``test_cfg`` may live in the model cfg (mmdet 2.x new
     style) or be passed separately (legacy style, reference

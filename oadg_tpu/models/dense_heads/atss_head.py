@@ -9,11 +9,11 @@ from __future__ import annotations
 
 from typing import Any
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ... import nn
 from ...core.anchor import AnchorGenerator
 from ...core.bbox.assign_sample import ATSSAssigner
 from ...core.bbox.coder import DeltaXYWHBBoxCoder

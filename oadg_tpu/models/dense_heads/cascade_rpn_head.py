@@ -6,17 +6,17 @@ region-based assignment (center cells of each gt on its scale-mapped
 level); stage 2 re-assigns by IoU on the refined anchors and adds the
 objectness branch. The reference's adaptive (offset-guided) convs become
 a deform conv driven by the stage-1 deltas — same alignment idea, dense
-tap gathers on TPU.
+tap gathers.
 """
 from __future__ import annotations
 
 from typing import Any, Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ... import nn
 from ...core.anchor import AnchorGenerator
 from ...core.bbox.assign_sample import MaxIoUAssigner
 from ...core.bbox.coder import DeltaXYWHBBoxCoder

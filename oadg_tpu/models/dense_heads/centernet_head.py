@@ -8,10 +8,10 @@ from __future__ import annotations
 
 from typing import Any
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from ... import nn
 from ...utils.registry import DETECTORS, HEADS, LOSSES, build_from_cfg
 from ..layers import Conv
 from ..utils.misc import gaussian_radius, gen_gaussian_target

@@ -7,7 +7,7 @@ adaption), mmdet/models/detectors/{cornernet.py, centripetalnet.py} (the
 latter is served by the CornerNet detector class in the reference too),
 mmdet/models/utils/gaussian_target.py.
 
-TPU-native: corner pooling is lax.cummax (ops/misc_ops.py); the ragged
+Corner pooling is lax.cummax (ops/misc_ops.py); the ragged
 per-gt corner scatter becomes a dense per-gt gaussian max-composite;
 decode pairs the static top-k tl/br corners (K x K combinations, masked).
 """
@@ -15,10 +15,10 @@ from __future__ import annotations
 
 from typing import Any, Dict
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from ... import nn
 from ...ops.misc_ops import corner_pool
 from ...utils.registry import DETECTORS, HEADS, LOSSES, build_from_cfg
 from ..detectors.single_stage import SingleStageDetector

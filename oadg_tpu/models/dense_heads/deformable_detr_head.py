@@ -2,21 +2,21 @@
 mmdet/models/utils/transformer.py DeformableDetrTransformer,
 mmcv MultiScaleDeformableAttention CUDA kernel, detectors/deformable_detr.py).
 
-TPU-native MultiScaleDeformableAttention: the CUDA kernel's per-query
+MultiScaleDeformableAttention: the CUDA kernel's per-query
 scatter/gather becomes a batched bilinear gather of num_points taps per
 level (ops/deform_conv.bilinear_gather) + einsum-weighted sum — all dense
-matmul/gather, MXU/VPU friendly. Iterative bbox refinement between decoder
+matmul/gather. Iterative bbox refinement between decoder
 layers; sigmoid-focal classification with Hungarian matching per layer.
 """
 from __future__ import annotations
 
 from typing import Any, Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ... import nn
 from ...core.bbox.geometry import bbox_overlaps
 from ...core.bbox.hungarian import (HungarianAssigner, cxcywh_to_xyxy,
                                     xyxy_to_cxcywh)

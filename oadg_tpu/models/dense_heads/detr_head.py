@@ -11,10 +11,10 @@ from __future__ import annotations
 
 from typing import Any
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from ... import nn
 from ...core.bbox.geometry import bbox_overlaps
 from ...core.bbox.hungarian import (HungarianAssigner, cxcywh_to_xyxy,
                                     xyxy_to_cxcywh)

@@ -10,11 +10,11 @@ from __future__ import annotations
 
 from typing import Any, Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ... import nn
 from ...core.bbox.transforms import distance2bbox
 from ...core.post_processing.nms import multiclass_nms
 from ...utils.registry import HEADS, LOSSES, build_from_cfg

@@ -4,7 +4,7 @@ References: mmdet/models/dense_heads/fovea_head.py (FoveaHead),
 mmdet/models/dense_heads/fsaf_head.py (FSAFHead, online feature selection),
 mmdet/models/detectors/fovea.py, fsaf.py.
 
-TPU-native notes: mmdet builds ragged per-gt index lists on CPU; here both
+Notes: mmdet builds ragged per-gt index lists on CPU; here both
 heads use per-point x per-gt candidate matrices (static shapes) like the
 FCOS head. FSAF's online feature selection — pick, per gt, the pyramid
 level with the lowest (cls+reg) loss over the gt's effective region — is a
@@ -14,11 +14,11 @@ from __future__ import annotations
 
 from typing import Any, Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ... import nn
 from ...core.bbox.geometry import bbox_overlaps
 from ...core.bbox.transforms import distance2bbox
 from ...core.post_processing.nms import multiclass_nms

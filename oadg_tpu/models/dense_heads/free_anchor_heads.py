@@ -13,11 +13,11 @@ from __future__ import annotations
 
 from typing import Any
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ... import nn
 from ...core.bbox.geometry import bbox_overlaps
 from ...utils.registry import HEADS
 from ..layers import FrozenBN

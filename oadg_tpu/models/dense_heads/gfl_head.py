@@ -7,11 +7,11 @@ from __future__ import annotations
 
 from typing import Any
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ... import nn
 from ...core.anchor import AnchorGenerator
 from ...core.bbox.assign_sample import ATSSAssigner
 from ...core.bbox.geometry import bbox_overlaps

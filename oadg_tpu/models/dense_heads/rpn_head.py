@@ -22,11 +22,11 @@ from __future__ import annotations
 
 from typing import Any, List, Optional, Sequence, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ... import nn
 from ...core.anchor import AnchorGenerator
 from ...core.bbox.assign_sample import MaxIoUAssigner, RandomSampler
 from ...core.post_processing.nms import (batched_nms_padded,
@@ -138,9 +138,8 @@ class RPNHead(nn.Module):
             labels = jnp.where(pos, 0, self.num_classes)         # fg label = 0
             label_w = (pos | neg).astype(jnp.float32)
             matched = jnp.clip(assign.gt_inds - 1, 0, gt.shape[0] - 1)
-            # gt[matched] as a one-hot matmul: a row gather of (K,) tiny
-            # 4-float rows is scalar-indexed on TPU (~5 ms at flagship
-            # shapes); (K, G) @ (G, 4) rides the MXU. HIGHEST precision so
+            # gt[matched] as a one-hot (K, G) @ (G, 4) matmul instead of a
+            # row gather of (K,) tiny 4-float rows. HIGHEST precision so
             # pixel coordinates survive exactly (one-hot rows are exact).
             onehot = jax.nn.one_hot(matched, gt.shape[0], dtype=jnp.float32)
             mgt = jnp.matmul(onehot, gt, precision=jax.lax.Precision.HIGHEST)
@@ -194,8 +193,7 @@ class RPNHead(nn.Module):
             # (the coordinate-offset trick separates them), so per-level
             # NMS under one more vmap is exactly equivalent — and turns
             # one O((5*nms_pre)^2) suppression fixpoint into 5 parallel
-            # O(nms_pre^2) ones (measured ~50 ms/step -> ~6 ms on the
-            # flagship bench; the while fixpoint dominated the model step).
+            # O(nms_pre^2) ones.
             cand_boxes, cand_scores, cand_valid = [], [], []
             for lvl, (sc, dl, anch) in enumerate(
                     zip(scores_lv, deltas_lv, per_level_anchors)):

@@ -11,11 +11,11 @@ from __future__ import annotations
 
 from typing import Any, Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ... import nn
 from ...core.anchor import SSDAnchorGenerator
 from ...core.bbox.assign_sample import MaxIoUAssigner
 from ...core.bbox.coder import DeltaXYWHBBoxCoder

@@ -10,11 +10,11 @@ from __future__ import annotations
 
 from typing import Any, Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ... import nn
 from ...core.bbox.assign_sample import ATSSAssigner
 from ...core.bbox.geometry import bbox_overlaps
 from ...core.bbox.transforms import distance2bbox

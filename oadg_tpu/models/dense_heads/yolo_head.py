@@ -11,11 +11,11 @@ from __future__ import annotations
 
 from typing import Any, List, Optional, Sequence, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ... import nn
 from ...core.bbox.coder import YOLOBBoxCoder
 from ...core.bbox.geometry import bbox_overlaps
 from ...core.post_processing.nms import multiclass_nms

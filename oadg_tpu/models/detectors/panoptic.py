@@ -10,11 +10,11 @@ from __future__ import annotations
 
 from typing import Any
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ... import nn
 from ...utils.registry import DETECTORS, HEADS, build_from_cfg
 from .two_stage import TwoStageDetector
 

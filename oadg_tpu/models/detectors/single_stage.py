@@ -5,10 +5,10 @@ from __future__ import annotations
 
 from typing import Any, Dict
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from ... import nn
 from ...utils.registry import BACKBONES, DETECTORS, HEADS, NECKS, build_from_cfg
 
 

@@ -1,4 +1,4 @@
-"""Two-stage detectors (flax.linen): FasterRCNN + OA-DG training path.
+"""Two-stage detectors: FasterRCNN + OA-DG training path.
 
 Reference parity (mmdet/models/detectors/two_stage.py, base.py):
 - ``forward_train`` (two_stage.py:92): backbone+neck -> RPN loss + proposals
@@ -11,7 +11,7 @@ Reference parity (mmdet/models/detectors/two_stage.py, base.py):
   random boxes ('oagrb' mode). Rejection loops become masked candidates.
 - ``simple_test`` (two_stage.py:224): RPN proposals -> RoI head detection.
 
-The detector is one linen module; the train step is
+The detector is one module; the train step is
 ``detector.apply(vars, batch, mode='train', rngs=...)`` returning a loss
 dict — everything inside is jit-traceable with static shapes.
 """
@@ -19,10 +19,10 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from ... import nn
 from ...core.bbox.geometry import bbox_overlaps
 from ...utils.registry import (BACKBONES, DETECTORS, HEADS, NECKS,
                                build_from_cfg)

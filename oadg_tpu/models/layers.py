@@ -1,4 +1,4 @@
-"""Shared NN building blocks (flax.linen, NHWC, torch-faithful padding).
+"""Shared NN building blocks (NHWC, torch-faithful padding).
 
 Replaces mmcv's ConvModule / norm layers used throughout the reference's
 model zoo. Convolutions use explicit symmetric padding to bit-match torch's
@@ -17,9 +17,10 @@ from __future__ import annotations
 
 from typing import Any, Callable, Optional, Sequence, Tuple, Union
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
+
+from .. import nn
 
 Dtype = Any
 
@@ -51,7 +52,7 @@ class Conv(nn.Module):
     padding: Union[int, Tuple[int, int]] = 0
     dilation: Union[int, Tuple[int, int]] = 1
     use_bias: bool = True
-    kernel_init: Any = None          # None -> flax default (lecun_normal)
+    kernel_init: Any = None          # None -> nn.Conv default (lecun_normal)
     bias_init: Any = None
     dtype: Optional[Dtype] = None
 
@@ -60,7 +61,7 @@ class Conv(nn.Module):
         """out_scale/out_bias: optional per-output-channel affine folded
         INTO the conv (y = conv(x, K*s) + (bias*s + b)) — used to absorb a
         frozen BatchNorm so no separate x*w+b pass touches the activation
-        tensor in HBM (see FrozenBN affine_only / resnet.py block fold)."""
+        tensor in device memory (see FrozenBN affine_only / resnet.py block fold)."""
         k = _pair(self.kernel_size)
         p = _pair(self.padding)
         kw = {}
@@ -93,7 +94,7 @@ class _AffineFoldConv(nn.Module):
 
     conv(x, K) * s + b == conv(x, K * s) + b exactly (s is per-OUTPUT
     channel, a linear map commutes with it); folding moves the affine from
-    two full-activation HBM passes (mul + add, plus their backward) onto
+    two full-activation memory passes (mul + add, plus their backward) onto
     the (kh, kw, cin, cout) kernel — a few thousand FLOPs. Param path and
     shape match the nn.Conv branch (``Conv_0/kernel``) so checkpoints,
     converters and init distributions are untouched."""
@@ -133,21 +134,19 @@ class _AffineFoldConv(nn.Module):
 class _S2DStemConv(nn.Module):
     """7x7/s2 stem conv computed as an EXACT W-only space-to-depth conv.
 
-    C_in=3 occupies 3 of the MXU's 128 reduction lanes: the stem was the
-    single slowest conv of the flagship step (10.5 ms, ~4% MFU — every
-    other conv profiles at 80-90%). Folding the W axis into channels
+    C_in=3 fills little of a matmul unit's reduction width, so the stem
+    runs far below the other convs' utilization. Folding the W axis into channels
     (a 1x2 space-to-depth) yields a 7x4/s(2,1) conv with C_in=6 — same
     math, reassociated: out[i,j] taps x[2i+dy-3, 2j+dx-3] for dy,dx in
     [0,7); over a front-zero-padded kernel W of 8 the tap index factors
     as dx+1 = 2t+s with t in [0,4), s in {0,1}. Unlike the full 2x2 fold
     (4x4/s1, C_in=12), the input relayout here is a FREE reshape —
     adjacent w pairs are contiguous in NHWC, so (B,H,W,C)->(B,H,W/2,2C)
-    moves no data, while the 2x2 fold's H interleave cost a measured
-    ~17 ms relayout at flagship shapes vs ~13.5 ms total for this form
-    (tools/misc/bench_s2d.py; H stays a strided conv axis, which the MXU
-    handles at full rate).
+    moves no data, while the 2x2 fold's H interleave needs a relayout
+    (tools/misc/bench_s2d.py times the forms; H stays a strided conv
+    axis).
 
-    The parameter keeps the reference (7, 7, C, F) shape and the flax
+    The parameter keeps the reference (7, 7, C, F) shape and the
     param path ``.../Conv_0/kernel`` — checkpoints, the torch converter
     and init distributions are untouched.
     """
@@ -165,7 +164,7 @@ class _S2DStemConv(nn.Module):
             "kernel",
             self.kernel_init or nn.initializers.lecun_normal(),
             (7, 7, cin, f))
-        # Mirror flax promote_dtype semantics: with dtype unset, promote
+        # Mirror nn.Conv's dtype promotion: with dtype unset, promote
         # input and kernel to their common dtype with the f32 params
         # (a bf16 image then computes in f32, exactly like the nn.Conv
         # fallback would) instead of silently adopting x.dtype.
@@ -295,7 +294,7 @@ class GroupNorm32(nn.Module):
 
 
 def build_norm(norm_cfg: Optional[dict], dtype=None) -> Callable:
-    """norm_cfg dict (mmdet schema) -> linen module factory.
+    """norm_cfg dict (mmdet schema) -> module factory.
 
     BN/SyncBN mode: live batch statistics by default (the reference's
     ``model.train()`` puts every BN in train mode), except when the cfg
@@ -435,8 +434,7 @@ class NonLocal2d(nn.Module):
     BFP refine and backbone plugins, reference mmdet/models/necks/bfp.py).
 
     y = x + W_out( softmax(theta(x) phi(x)^T) g(x) ) over flattened HW —
-    three 1x1 projections at C/2 plus one attention matmul, all
-    MXU-shaped.
+    three 1x1 projections at C/2 plus one attention matmul.
     """
     in_channels: int
     reduction: int = 2

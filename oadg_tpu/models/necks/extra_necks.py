@@ -6,10 +6,10 @@ from __future__ import annotations
 
 from typing import Any, Optional, Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from ... import nn
 from ...utils.registry import NECKS
 from ..layers import Conv, ConvModule, FrozenBN
 

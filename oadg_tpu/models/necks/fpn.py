@@ -1,4 +1,4 @@
-"""FPN neck (flax.linen, NHWC). Capability-parity with reference
+"""FPN neck (NHWC). Capability-parity with reference
 mmdet/models/necks/fpn.py:11: lateral 1x1 convs, nearest top-down upsample,
 3x3 output convs, extra outputs via max-pool (``num_outs > inputs``) or extra
 convs on input/output (``add_extra_convs``)."""
@@ -6,10 +6,10 @@ from __future__ import annotations
 
 from typing import Any, Optional, Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from ... import nn
 from ...utils.registry import NECKS
 from ..layers import Conv, ConvModule
 

@@ -2,7 +2,7 @@
 (fpn_carafe.py), FPG (fpg.py), SSDNeck (ssd_neck.py), CTResNetNeck
 (ct_resnet_neck.py), RFP (rfp.py), NASFCOS_FPN (nasfcos_fpn.py).
 
-All NHWC / flax.linen; upsampling is nearest (matching the reference's
+All NHWC; upsampling is nearest (matching the reference's
 F.interpolate defaults) except CARAFE which uses the content-aware kernel
 from ops/misc_ops.py. CTResNetNeck's ConvTranspose deconvs become
 resize+conv (equivalent capacity, XLA-friendlier).
@@ -11,10 +11,10 @@ from __future__ import annotations
 
 from typing import Any, Optional, Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from ... import nn
 from ...ops.misc_ops import carafe
 from ...utils.registry import NECKS
 from ..layers import Conv, ConvModule, ModulatedDeformConv, build_norm

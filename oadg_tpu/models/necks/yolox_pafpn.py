@@ -4,9 +4,9 @@ from __future__ import annotations
 
 from typing import Any, Sequence
 
-import flax.linen as nn
 import jax.numpy as jnp
 
+from ... import nn
 from ...utils.registry import NECKS
 from ..backbones.csp_darknet import ConvBNSiLU, CSPLayer
 

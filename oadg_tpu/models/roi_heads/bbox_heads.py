@@ -1,4 +1,4 @@
-"""RCNN box heads (flax.linen) + static-shape target/loss computation.
+"""RCNN box heads + static-shape target/loss computation.
 
 Parity targets:
 - ``Shared2FCBBoxHead`` (reference
@@ -17,10 +17,10 @@ from __future__ import annotations
 
 from typing import Any, Optional, Sequence, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from ... import nn
 from ...core.bbox.coder import DeltaXYWHBBoxCoder
 from ...utils.registry import HEADS, LOSSES, build_from_cfg
 from ..losses.common import accuracy

@@ -10,10 +10,10 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from ... import nn
 from ...core.bbox.assign_sample import MaxIoUAssigner, RandomSampler
 from ...core.post_processing.nms import multiclass_nms
 from ...utils.registry import HEADS, build_from_cfg

@@ -14,10 +14,10 @@ from __future__ import annotations
 
 from typing import Any, Dict, Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from ... import nn
 from ...ops.deform_conv import bilinear_gather
 from ...ops.misc_ops import point_sample
 from ...utils.registry import DETECTORS, HEADS, build_from_cfg

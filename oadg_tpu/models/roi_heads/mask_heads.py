@@ -5,7 +5,7 @@ Reference: mmdet/models/roi_heads/mask_heads/fcn_mask_head.py:30 (4x conv3x3
 over positive RoIs; mask_target.py crops full-image gt bitmap masks to each
 positive proposal and resizes to ``mask_size``).
 
-TPU-native redesign: full-image bitmap masks are ragged and huge. Ground
+Redesign: full-image bitmap masks are ragged and huge. Ground
 truth flows through the batcher as per-GT masks **pre-cropped to the gt box**
 at a fixed resolution (B, G, M0, M0) — see core/mask/structures.py. A mask
 target for a positive proposal is the gt-crop resampled through the
@@ -16,10 +16,10 @@ from __future__ import annotations
 
 from typing import Any, Optional
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from ... import nn
 from ...utils.registry import HEADS
 from ..layers import Conv
 
@@ -63,7 +63,7 @@ def mask_targets(pos_boxes, matched_gt_boxes, matched_gt_masks,
 
 @HEADS.register_module()
 class FCNMaskHead(nn.Module):
-    """Reference fcn_mask_head.py:30 architecture in flax (NHWC)."""
+    """Reference fcn_mask_head.py:30 architecture (NHWC)."""
     num_convs: int = 4
     in_channels: int = 256
     conv_out_channels: int = 256

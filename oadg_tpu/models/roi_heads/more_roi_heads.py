@@ -8,7 +8,7 @@ trident_roi_head.py}, mmdet/models/roi_heads/mask_heads/maskiou_head.py,
 mmdet/models/roi_heads/mask_heads/grid_head.py,
 mmdet/models/detectors/{rpn.py, fast_rcnn.py, trident_faster_rcnn.py}.
 
-TPU divergences (documented):
+Divergences (documented):
 - DynamicRoIHead's cross-iteration running statistics become per-batch
   statistics computed in-graph (no host state) — same adaptive behavior,
   no Python feedback loop.
@@ -18,11 +18,11 @@ from __future__ import annotations
 
 from typing import Any
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ... import nn
 from ...core.bbox.geometry import bbox_overlaps
 from ...utils.registry import DETECTORS, HEADS, LOSSES, build_from_cfg
 from ..layers import Conv, GroupNorm32

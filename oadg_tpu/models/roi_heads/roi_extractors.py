@@ -2,8 +2,7 @@
 
 - SingleRoIExtractor (reference mmdet/models/roi_heads/roi_extractors/
   single_level_roi_extractor.py:12): area-mapped level per roi, one fused
-  multilevel RoIAlign (ops/roi_align.py — the pallas window kernels on
-  TPU).
+  multilevel RoIAlign (ops/roi_align.py).
 - GenericRoIExtractor (reference generic_roi_extractor.py:10): extract
   from ALL levels and aggregate by sum or concat, with optional pre/post
   conv modules.
@@ -12,9 +11,9 @@ from __future__ import annotations
 
 from typing import Any, Sequence
 
-import flax.linen as nn
 import jax.numpy as jnp
 
+from ... import nn
 from ...ops.roi_align import roi_align, roi_align_multilevel
 from ...utils.registry import ROI_EXTRACTORS
 from ..layers import ConvModule

@@ -5,8 +5,8 @@ from __future__ import annotations
 
 from typing import Any
 
-import flax.linen as nn
 
+from ... import nn
 from ...utils.registry import HEADS
 from ..backbones.resnet import ARCH, Bottleneck
 from ..layers import norm_eval_cfg

@@ -8,16 +8,16 @@ Learned proposal boxes + features, refined by ``num_stages`` DII heads
 (self-attention over proposals, dynamic instance interaction with the RoI
 features, FFN), Hungarian-matched focal/L1/GIoU losses per stage. All
 static-shape: ``num_proposals`` is fixed; padded gts are masked in the
-matcher. MXU-friendly: the dynamic conv is two batched matmuls.
+matcher. The dynamic conv is two batched matmuls.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from ... import nn
 from ...core.bbox.geometry import bbox_overlaps
 from ...core.bbox.hungarian import HungarianAssigner, xyxy_to_cxcywh
 from ...ops.roi_align import roi_align_multilevel

@@ -6,11 +6,11 @@ from __future__ import annotations
 
 from typing import Any, Optional, Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ... import nn
 from ..backbones.resnet import ARCH, BasicBlock, Bottleneck
 
 

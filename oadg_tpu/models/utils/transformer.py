@@ -1,19 +1,20 @@
 """Transformer building blocks for DETR-family heads (reference
 mmdet/models/utils/transformer.py + positional_encoding.py).
 
-TPU notes: attention over the flattened feature map is one large batched
-matmul chain (MXU-friendly); everything is static-shape, post-norm DETR
+Notes: attention over the flattened feature map is one large batched
+matmul chain; everything is static-shape, post-norm DETR
 layout. MultiScaleDeformableAttention (Deformable DETR) is not replicated —
-its scatter/gather pattern is hostile to the MXU; plain global attention is
-the TPU-native choice at DETR's 1/32 resolution.
+plain global attention is dense matmuls and cheap at DETR's 1/32
+resolution.
 """
 from __future__ import annotations
 
 from typing import Any, Optional
 
-import flax.linen as nn
 import jax.numpy as jnp
 import numpy as np
+
+from ... import nn
 
 
 class SinePositionalEncoding:

@@ -1,4 +1,4 @@
-"""TPU-native op substrate: XLA/Pallas replacements for the native kernels
+"""Op substrate: JAX/XLA replacements for the native kernels
 the reference delegates to mmcv-CUDA / OpenCV / Pillow (SURVEY.md §2.4)."""
 from .image_ops import (box_blur3, gaussian_blur, gaussian_kernel1d,
                         invert_affine, resize_bilinear, rotation_matrix,

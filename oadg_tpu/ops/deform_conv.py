@@ -1,15 +1,15 @@
-"""Deformable convolution v1/v2 for TPU (replaces mmcv.ops.DeformConv2d /
+"""Deformable convolution v1/v2 in JAX (replaces mmcv.ops.DeformConv2d /
 ModulatedDeformConv2d CUDA kernels; reference users: reppoints_head.py,
 vfnet_head.py, guided_anchor_head.py, configs/dcn/*).
 
-TPU-native design: the CUDA kernel's per-output-location im2col with
+Design: the CUDA kernel's per-output-location im2col with
 data-dependent addresses becomes (1) a batched bilinear gather of the
 K = kh*kw deformed taps — 4 axis-aligned gathers on a flattened (B*H*W, C)
-table, fully vectorized, and (2) one large einsum (the matmul lands on the
-MXU). Gradients flow through the gathers (scatter-add under AD).
+table, fully vectorized, and (2) one large einsum (one dense
+matmul). Gradients flow through the gathers (scatter-add under AD).
 
-Layouts: NHWC activations; weights (kh, kw, C_in // groups, C_out) (flax
-convention). Offsets follow the torch/mmcv channel order
+Layouts: NHWC activations; weights (kh, kw, C_in // groups, C_out) (the
+nn.Conv convention). Offsets follow the torch/mmcv channel order
 (deform_groups * kh * kw * 2) with (dy, dx) interleaved per tap, NHWC-last,
 so torch-converted offset-conv weights work unchanged.
 """

@@ -139,10 +139,14 @@ def _sep_conv(img: jnp.ndarray, ky: np.ndarray, kx: np.ndarray) -> jnp.ndarray:
     x = x.transpose(2, 0, 1)[:, None]                          # channels -> batch: (C,1,H,W)
     wy = jnp.asarray(ky, img.dtype).reshape(1, 1, -1, 1)
     wx = jnp.asarray(kx, img.dtype).reshape(1, 1, 1, -1)
+    # HIGHEST: a GPU may run a float32 conv in TF32, which breaks the pins
+    hi = jax.lax.Precision.HIGHEST
     x = jax.lax.conv_general_dilated(x, wy, (1, 1), "VALID",
-                                     dimension_numbers=("NCHW", "OIHW", "NCHW"))
+                                     dimension_numbers=("NCHW", "OIHW", "NCHW"),
+                                     precision=hi)
     x = jax.lax.conv_general_dilated(x, wx, (1, 1), "VALID",
-                                     dimension_numbers=("NCHW", "OIHW", "NCHW"))
+                                     dimension_numbers=("NCHW", "OIHW", "NCHW"),
+                                     precision=hi)
     return x[:, 0].transpose(1, 2, 0)
 
 

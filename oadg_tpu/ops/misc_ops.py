@@ -2,7 +2,7 @@
 RoIPool, MaskedConv2d helper, CARAFE content-aware upsampling.
 
 All pure jnp/XLA — these ops are memory-bound gathers/scans for which XLA's
-fusion is already at the HBM roofline; no Pallas needed.
+fusion is already memory-bound; no hand-written kernel needed.
 """
 from __future__ import annotations
 
@@ -57,7 +57,7 @@ def point_sample(feats: jnp.ndarray, points: jnp.ndarray,
 def roi_pool(feats: jnp.ndarray, rois: jnp.ndarray, output_size: int = 7,
              spatial_scale: float = 1.0, samples: int = 4) -> jnp.ndarray:
     """RoIPool (max in each bin). The CUDA kernel maxes over the integer
-    cells in each bin (data-dependent count); on TPU we max over a static
+    cells in each bin (data-dependent count); here we max over a static
     ``samples``x``samples`` bilinear grid per bin — equal for bins smaller
     than ``samples`` cells, an unbiased approximation above.
 
@@ -119,7 +119,7 @@ def carafe(x: jnp.ndarray, masks: jnp.ndarray, kernel_size: int = 5,
 
 def masked_conv_apply(conv_out: jnp.ndarray, mask: jnp.ndarray
                       ) -> jnp.ndarray:
-    """mmcv MaskedConv2d semantics on TPU: dense conv (MXU-friendly) then
-    zero where mask is off. The CUDA kernel skips masked locations to save
-    FLOPs; on the MXU dense + mask is faster than sparse gathers."""
+    """mmcv MaskedConv2d semantics: dense conv then zero where mask is off.
+    The CUDA kernel skips masked locations to save FLOPs; a dense conv
+    plus mask needs no data-dependent gathers."""
     return conv_out * mask.astype(conv_out.dtype)[..., None]

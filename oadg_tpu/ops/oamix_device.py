@@ -1,4 +1,4 @@
-"""OA-Mix as fused on-device XLA kernels (the TPU rewrite of reference
+"""OA-Mix as fused on-device XLA kernels (the device rewrite of reference
 mmdet/datasets/pipelines/oa_mix.py + bbox_augmentation.py + augmix.py).
 
 The reference runs, per sample, on CPU: random multi-level boxes with
@@ -8,7 +8,7 @@ width x depth AugMix chain where each step applies a randomly chosen op
 region-masked, Dirichlet mixing, then object-aware mixing with
 saliency-gated coefficients (SURVEY.md §2.1 row "OAMix pipeline op").
 
-TPU-native redesign (all static shapes, vmapped over batch):
+On-device redesign (all static shapes, scanned over the batch):
 
 1. **Closed-form blurred masks.** The reference builds a box indicator at
    1/4 resolution, GaussianBlurs it with sigma = side*sigma_ratio*2/3, and
@@ -46,13 +46,13 @@ from __future__ import annotations
 import math
 from functools import partial
 import os as _os
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Tuple
 
 import jax
 import jax.numpy as jnp
 
-from .pallas_warp import (warp_rotate, warp_shear_x, warp_shear_y,
-                          warp_translate_x, warp_translate_y)
+from .row_warp import (warp_rotate, warp_shear_x, warp_shear_y,
+                       warp_translate_x, warp_translate_y)
 from .photometric import (autocontrast, enhance_brightness, enhance_color,
                           enhance_contrast, enhance_sharpness, equalize,
                           invert, posterize, solarize)
@@ -64,35 +64,12 @@ MAX_FG = 16         # GT boxes participating in per-box warps / oa mixing
 ATTEMPTS = 8        # redraws per random-box slot (reference: up to 50)
 
 
-def _use_merged_chain() -> bool:
-    # OAMIX_CHAIN=merged routes the chain through _depth_step_merged:
-    # per-slot lax.cond + lax.switch dispatch replaced by ONE fused
-    # photometric pass + a cond-GATED warp trio per geo-drawn slot.
-    # History (v5e, chain A/B b=4 1024x2048, oadg 15-op version):
-    # slots 88 ms; first merged form 132 ms (it paid all 9 warp passes
-    # every depth step — unconditional lost); cond-gated merged 68 ms
-    # (photo slots share one fused pass incl. a single equalize hist —
-    # the costliest op at ~1.9 ms/exec in the slot dispatch — and only
-    # geo-drawn slots run their trio, P(geo)=6/15 per slot). BUT inside
-    # the full train step the gated-merged chain REGRESSES: full-bench
-    # A/B 2026-08-20 measured slots 0.3265 s/step (12.25 samples/s) vs
-    # merged 0.3722 (10.75) — the standalone 20 ms win inverts to a
-    # 45 ms in-step loss (TPU conditionals are scheduling barriers; the
-    # merged form's unconditional photo pass + per-depth any_eq/any_sharp
-    # conds interact worse with the surrounding fwd/bwd than the slot
-    # dispatch does). Default stays "slots"; merged remains the tested
-    # equivalent (bit-equal under shared-draw injection —
-    # tests/test_oamix_merged.py; production differs only by PRNG stream
-    # assignment) for workloads where the chain runs standalone.
-    return _os.environ.get("OAMIX_CHAIN", "slots") == "merged"
-
-
 def _lane_dtype():
     """Chain-state lane dtype crossing every lax.cond/switch boundary.
 
     The chain state is integer-valued 0..255 after every op (each branch
     trunc/rounds), so uint8 represents it EXACTLY and quarters the f32
-    boundary materialization bytes (the measured dominant chain cost).
+    boundary materialization bytes.
     Branches upcast internally exactly as the bf16-lane form did, so all
     math — and therefore the golden/quantization pins — is bit-identical.
     OAMIX_LANES=bf16|f32 restores the wider lanes (A/B + debugging);
@@ -103,20 +80,6 @@ def _lane_dtype():
     v = _os.environ.get("OAMIX_LANES", "u8")
     return {"f32": jnp.float32, "bf16": jnp.bfloat16,
             "u8": jnp.uint8}[v]
-
-
-def _use_pw_geo() -> bool:
-    # Route bboxes_only_* through the piecewise-shift Pallas kernel
-    # (vs the per-pixel XLA gather path). Default ON for TPU since the
-    # binary-decomposed-roll kernel + hoisted per-view prep measured
-    # 0.525 s/step vs 0.827 on the flagship bench (OAMIX_GEO_PW=0 opts
-    # back into the gather path; OAMIX_GEO_PW=force enables the pw MATH
-    # on CPU too — its XLA fallback — so the quantization suite can pin
-    # the production path's 3-shear/blend semantics off-chip).
-    v = _os.environ.get("OAMIX_GEO_PW", "1")
-    if v == "force":
-        return True
-    return jax.devices()[0].platform != "cpu" and v != "0"
 
 
 # ---------------------------------------------------------------- masks ----
@@ -220,8 +183,8 @@ def _sample_random_boxes(key, img_shape, scale_rng, ratio_rng, max_boxes: int,
 def _op_matrices(key, family: int, boxes, box_valid, img_shape,
                  severity: float, is_bg: bool, inj=None):
     """Forward 2x3 affines for one geometric-op family, vectorized over
-    boxes (scalar-granularity ops serialize badly on TPU, so all per-box
-    quantities stay (G,) vectors and the RNG is one fused draw).
+    boxes (all per-box quantities stay (G,) vectors and the RNG is one
+    fused draw).
 
     ``family``: 0=rotate, 1=shear_xy, 2=translate_xy — parameter scaling per
     reference augmix.py:83-188 (per-box level draws, box-scaled translate,
@@ -294,60 +257,14 @@ def _invert_2x3(m):
                       jnp.stack([ic, id_, -(ic * tx + id_ * ty)])])
 
 
-def _warp_by_pixel_matrices(img, inv_map):
-    """Bilinear gather with per-pixel inverse affine params (utility; the
-    production paths use the separable/Pallas warps — kept for exact direct
-    bilinear resampling needs and tests).
-
-    img (H, W, C); inv_map (H, W, 6) rows [ia, ib, itx, ic, id, ity].
-    Out-of-range samples read 0 (cv2 BORDER_CONSTANT).
-
-    TPU gathers are per-row scalar-granularity, so the 4 bilinear taps are
-    folded into 2 gathers over a channel-paired table: P[y, x] holds
-    (img[y, x], img[y, x+1]) — one gather per y-tap fetches both x-taps.
-    """
-    h, w = img.shape[0], img.shape[1]
-    c = img.shape[-1]
-    ys = jnp.arange(h, dtype=jnp.float32)[:, None]
-    xs = jnp.arange(w, dtype=jnp.float32)[None, :]
-    sx = inv_map[..., 0] * xs + inv_map[..., 1] * ys + inv_map[..., 2]
-    sy = inv_map[..., 3] * xs + inv_map[..., 4] * ys + inv_map[..., 5]
-    x0 = jnp.floor(sx)
-    y0 = jnp.floor(sy)
-    fx = (sx - x0)[..., None]
-    fy = (sy - y0)[..., None]
-    x0i = x0.astype(jnp.int32)
-    y0i = y0.astype(jnp.int32)
-
-    shifted = jnp.concatenate([img[:, 1:], jnp.zeros((h, 1, c), img.dtype)],
-                              axis=1)
-    pair = jnp.concatenate([img, shifted], axis=-1)             # (H, W, 2C)
-
-    inx = (x0i >= 0) & (x0i < w)
-    inx1 = (x0i + 1 >= 0) & (x0i + 1 < w)
-
-    def tap(yi):
-        iny = (yi >= 0) & (yi < h)
-        v = pair[jnp.clip(yi, 0, h - 1), jnp.clip(x0i, 0, w - 1)]
-        va = jnp.where((iny & inx)[..., None], v[..., :c], 0.0)
-        vb = jnp.where((iny & inx1)[..., None], v[..., c:], 0.0)
-        return va, vb
-
-    v00, v01 = tap(y0i)
-    v10, v11 = tap(y0i + 1)
-    return ((v00 * (1 - fx) + v01 * fx) * (1 - fy)
-            + (v10 * (1 - fx) + v11 * fx) * fy)
-
-
 # ----------------------------------------------------------- chain step ----
 
 def _lerp_axis(pair, idx, frac, axis: int, limit: int):
     """2-tap linear interp along one axis from a channel-paired table.
 
     ``pair`` holds (x, shift(x)) in split channels so ONE axis-aligned
-    take_along_axis fetches both taps — single-axis gathers run at HBM
-    bandwidth on TPU, unlike 2D-indirect gathers (which additionally
-    poison lax.switch compilation)."""
+    take_along_axis fetches both taps (a single-axis gather, not a
+    2D-indirect one)."""
     c = pair.shape[-1] // 2
     v = jnp.take_along_axis(pair, jnp.clip(idx, 0, limit - 1)[..., None],
                             axis=axis)
@@ -358,77 +275,29 @@ def _lerp_axis(pair, idx, frac, axis: int, limit: int):
     return a * (1 - f) + b * f
 
 
-def _warp_affine_2pass(img, inv):
-    """Affine warp via the two-pass separable decomposition
-    (Catmull-Smith): a horizontal resample with row-dependent coefficients
-    followed by a vertical resample — only axis-aligned gathers, no 2D
-    indirection. ``inv`` is the 2x3 output->source map
-    [sx; sy] = [[a,b,c],[d,e,f]] @ [xo, yo, 1].
-
-    Within-quantization-tolerance divergence from direct bilinear (the
-    classic 2-pass approximation); border semantics are cv2 BORDER_CONSTANT
-    zeros. Requires |e| not tiny (true for the OA-Mix op families:
-    rotations <= 30 deg, shears <= 0.3, translations).
-    """
-    h, w = img.shape[0], img.shape[1]
-    c = img.shape[-1]
-    a, b, cc = inv[0, 0], inv[0, 1], inv[0, 2]
-    d, e, f = inv[1, 0], inv[1, 1], inv[1, 2]
-    e_safe = jnp.where(jnp.abs(e) < 1e-3, 1e-3, e)
-
-    xo = jnp.arange(w, dtype=jnp.float32)[None, :]
-    u = jnp.arange(h, dtype=jnp.float32)[:, None]
-    yo = jnp.arange(h, dtype=jnp.float32)[:, None]
-
-    # pass 1 (horizontal): tmp[u, xo] = img[u, gx(u, xo)]
-    gx = (a - b * d / e_safe) * xo + (b / e_safe) * u + (cc - b * f / e_safe)
-    gx = jnp.broadcast_to(gx, (h, w))
-    x0 = jnp.floor(gx)
-    shifted = jnp.concatenate([img[:, 1:], jnp.zeros((h, 1, c), img.dtype)],
-                              axis=1)
-    pair_x = jnp.concatenate([img, shifted], axis=-1)
-    tmp = _lerp_axis(pair_x, x0.astype(jnp.int32), gx - x0, axis=1, limit=w)
-
-    # pass 2 (vertical): out[yo, xo] = tmp[sy(yo, xo), xo]
-    sy = d * xo + e * yo + f
-    sy = jnp.broadcast_to(sy, (h, w))
-    y0 = jnp.floor(sy)
-    shifted_y = jnp.concatenate([tmp[1:], jnp.zeros((1, w, c), tmp.dtype)],
-                                axis=0)
-    pair_y = jnp.concatenate([tmp, shifted_y], axis=-1)
-    return _lerp_axis(pair_y, y0.astype(jnp.int32), sy - y0, axis=0, limit=h)
-
-
 class _FgInfo(NamedTuple):
     boxes: jnp.ndarray       # (MAX_FG, 4)
     valid: jnp.ndarray       # (MAX_FG,)
     scores: jnp.ndarray      # (MAX_FG,)
     best_id: jnp.ndarray     # (H, W) int8: strongest-mask box per pixel,
-    # or the identity sentinel G where every mask < pallas_fg.BID_EPS
-    # (the blend weight there is negligible; the sentinel collapses the
-    # far-field Voronoi spray that multiplied the piecewise-warp
-    # kernels' per-block work — pass measured 0.93 -> 0.32 ms)
+    # or the identity sentinel G where every mask < BID_EPS (the blend
+    # weight there is negligible)
     cover: jnp.ndarray       # (H, W) bf16 combined coverage 1-prod(1-m_i)
     union: jnp.ndarray       # (H, W) bf16 max_i m_i (bg_only's fg-union)
     # narrow dtypes: these maps are closed over by every lax.switch branch,
-    # so they cross (are materialized at) every conditional boundary — the
-    # dominant per-execution cost. int8 indexes MAX_FG=16; bf16 blend
-    # weights cost <=0.4% of one intensity level.
-    pw_x: Optional[tuple] = None   # pw_prep(best_id) for row-shift passes
-    pw_y: Optional[tuple] = None   # pw_prep(best_id.T) for the y pass
+    # so they may be materialized at every conditional boundary. int8
+    # indexes MAX_FG=16; bf16 blend weights cost <=0.4% of one intensity
+    # level.
 
 
-def _precompute_fg_maps(boxes, valid, h: int, w: int, sigma_ratio: float):
-    """Per-image mask maps shared by every aug call (the boxes never change
-    within a view, so this runs once, not 27x).
+BID_EPS = 1e-5      # best mask below this -> identity sentinel id G: the
+# blend weight there is < G*eps (~2e-4, <=0.04 intensity), while the argmax
+# would otherwise spray arbitrary far-box ids Voronoi-style across the image
 
-    The blurred box masks are separable: per box only the 1-D x/y profiles
-    are computed (G x W + G x H erf evaluations — trivial), and the three
-    full-res maps come from ONE fused broadcast-reduce over the box axis.
-    (A fori_loop carrying four (H, W) buffers measured 130 ms/image — each
-    iteration re-materialized every carry; this form is ~20x faster.)
-    """
-    g = boxes.shape[0]
+
+def fg_profiles(boxes, valid, h: int, w: int, sigma_ratio: float):
+    """Separable 1-D profiles of the blurred box masks: (G, W) and (G, H),
+    with invalid and degenerate boxes gated to zero."""
     xs = jnp.arange(w, dtype=jnp.float32) + 0.5
     ys = jnp.arange(h, dtype=jnp.float32) + 0.5
 
@@ -448,126 +317,29 @@ def _precompute_fg_maps(boxes, valid, h: int, w: int, sigma_ratio: float):
     small = ((boxes[:, 2] - boxes[:, 0]) < 1) | \
             ((boxes[:, 3] - boxes[:, 1]) < 1)
     gate = (valid & ~small).astype(jnp.float32)           # (G,)
-    fyg = jnp.clip(fy, 0.0, 1.0) * gate[:, None]
-    fxg = jnp.clip(fx, 0.0, 1.0)
-    from .pallas_fg import fg_maps
-    return fg_maps(fxg, fyg, h, w)
+    return jnp.clip(fx, 0.0, 1.0), jnp.clip(fy, 0.0, 1.0) * gate[:, None]
 
 
-def _pw_params(key, boxes, severity: float, inj=None):
-    """Per-call draws shared by the pw family kernels — same RNG layout as
-    ``_op_matrices`` (lvl/sign per box, ONE axis coin per call, matching
-    reference bbox_augmentation.py:103-117 shear_xy/translate_xy).
-    ``inj`` = (levels (G,), signs (G,), coin) shared-draw-table mode."""
-    g = boxes.shape[0]
-    if inj is not None:
-        lvl = inj[0][:g]
-        sign = inj[1][:g]
-        use_x = inj[2] < 0.5
-    else:
-        u = jax.random.uniform(key, (g, 3))
-        lvl = 0.1 + u[:, 0] * (severity - 0.1)
-        sign = jnp.where(u[:, 1] > 0.5, -1.0, 1.0)
-        use_x = u[0, 2] < 0.5
-    cx = (boxes[:, 0] + boxes[:, 2]) / 2.0
-    cy = (boxes[:, 1] + boxes[:, 3]) / 2.0
-    bw = boxes[:, 2] - boxes[:, 0] + 1
-    bh = boxes[:, 3] - boxes[:, 1] + 1
-    return lvl, sign, use_x, cx, cy, bw, bh
+def fg_maps(fx, fy):
+    """The three per-pixel reductions over the G separable box masks
+    m_i(y, x) = fy[i, y] * fx[i, x], as one broadcast-reduce over the box
+    axis: best_id = argmax_i m_i (int8, or the sentinel G where every mask
+    < BID_EPS), cover = 1 - prod_i (1 - m_i) and union = max_i m_i (bf16),
+    each (H, W)."""
+    g = fx.shape[0]
+    m = fy[:, :, None] * fx[:, None, :]            # (G, H, W)
+    best = jnp.max(m, axis=0)
+    best_id = jnp.where(best >= BID_EPS, jnp.argmax(m, axis=0),
+                        g).astype(jnp.int8)
+    cover = jnp.clip(1.0 - jnp.prod(1.0 - m, axis=0), 0.0, 1.0)
+    return best_id, cover.astype(jnp.bfloat16), best.astype(jnp.bfloat16)
 
 
-def _pw_finish(img, warped, fg: _FgInfo):
-    cov = fg.cover.astype(jnp.float32)[..., None]
-    out = img * (1.0 - cov) + warped * cov
-    return jnp.clip(jnp.round(out), 0, 255)
-
-
-def _pw_pass_x(img, fg: _FgInfo, p):
-    from .pallas_warp import piecewise_shift_rows
-    bid = fg.best_id.astype(jnp.int32)
-    return piecewise_shift_rows(img, bid, p, 512, prep=fg.pw_x)
-
-
-def _pw_pass_y(img, fg: _FgInfo, p):
-    from .pallas_warp import piecewise_shift_rows
-    bid = fg.best_id.astype(jnp.int32)
-    return jnp.transpose(
-        piecewise_shift_rows(jnp.transpose(img, (1, 0, 2)),
-                             jnp.transpose(bid), p, 768, prep=fg.pw_y),
-        (1, 0, 2))
-
-
-def _warp_lanes(img):
-    """uint8 chain lanes upcast to bf16 for the shift kernels (identical
-    values — ints <= 255 are exact in bf16 — so the kernel math and the
-    blend results are bit-identical to the bf16-lane form)."""
-    return img.astype(jnp.bfloat16) if img.dtype == jnp.uint8 else img
-
-
-def _pw_rotate(img, fg: _FgInfo, key, severity: float, inj=None):
-    """bboxes_only_rotate on the piecewise-shift kernel: centered Paeth
-    X(a1) Y(b2) X(a1) 3-shear factorization (3 per-row shift passes).
-    Same per-pixel strongest-box approximation as the gather path; the
-    rotation interpolates through 3 lerp stages instead of 2."""
-    img = _warp_lanes(img)
-    h, w = img.shape[0], img.shape[1]
-    lvl, sign, _, cx, cy, _, _ = _pw_params(key, fg.boxes, severity, inj)
-    deg = jnp.floor(lvl * 30.0 / 10.0) * sign
-    rad = jnp.deg2rad(deg)
-    a1 = -jnp.tan(rad / 2.0)
-    b2 = jnp.sin(rad)
-    ys = jnp.arange(h, dtype=jnp.float32)[:, None]
-    xs = jnp.arange(w, dtype=jnp.float32)[:, None]
-    p1 = a1[None, :] * (ys - cy[None, :])
-    p2 = b2[None, :] * (xs - cx[None, :])
-    out = _pw_pass_x(img, fg, p1)
-    out = _pw_pass_y(out, fg, p2)
-    out = _pw_pass_x(out, fg, p1)
-    return _pw_finish(img, out, fg)
-
-
-def _pw_shear(img, fg: _FgInfo, key, severity: float, inj=None):
-    """bboxes_only_shear_xy: ONE shift pass — x or y picked by the
-    per-call coin via lax.cond (under scan the untaken pass never runs;
-    the old 3-pass form paid two dead kernel passes + transposes)."""
-    img = _warp_lanes(img)
-    h, w = img.shape[0], img.shape[1]
-    lvl, sign, use_x, cx, cy, _, _ = _pw_params(key, fg.boxes, severity,
-                                                inj)
-    sh = lvl * 0.3 / 10.0 * sign
-    ys = jnp.arange(h, dtype=jnp.float32)[:, None]
-    xs = jnp.arange(w, dtype=jnp.float32)[:, None]
-    out = jax.lax.cond(
-        use_x,
-        lambda im: _pw_pass_x(im, fg, sh[None, :] * (ys - cy[None, :])),
-        lambda im: _pw_pass_y(im, fg, sh[None, :] * (xs - cx[None, :])),
-        img)
-    return _pw_finish(img, out, fg)
-
-
-def _pw_translate(img, fg: _FgInfo, key, severity: float, inj=None):
-    """bboxes_only_translate_xy: ONE constant-shift pass (x or y).
-
-    Bound note: the pass clamps per-box shifts to the kernel's max_shift
-    (512 for x, 768 for the transposed y pass). The reference bound is
-    box_extent/3, so a gt box wider than 1536 px at max severity would
-    translate 512 px instead of up to ~682 — a documented saturation on
-    near-image-width boxes (their blend mask covers most of the frame
-    anyway); all rotate/shear bounds fit well inside the kernel pad."""
-    img = _warp_lanes(img)
-    h, w = img.shape[0], img.shape[1]
-    lvl, sign, use_x, _, _, bw, bh = _pw_params(key, fg.boxes, severity,
-                                                inj)
-    tx = jnp.floor(lvl * (bw / 3.0) / 10.0) * sign
-    ty = jnp.floor(lvl * (bh / 3.0) / 10.0) * sign
-    ones_h = jnp.ones((h, 1), jnp.float32)
-    ones_w = jnp.ones((w, 1), jnp.float32)
-    out = jax.lax.cond(
-        use_x,
-        lambda im: _pw_pass_x(im, fg, ones_h * tx[None, :]),
-        lambda im: _pw_pass_y(im, fg, ones_w * ty[None, :]),
-        img)
-    return _pw_finish(img, out, fg)
+def _precompute_fg_maps(boxes, valid, h: int, w: int, sigma_ratio: float):
+    """Per-image mask maps shared by every aug call (the boxes never change
+    within a view, so this runs once, not 27x). Only the 1-D profiles are
+    computed per box (G x W + G x H erf evaluations)."""
+    return fg_maps(*fg_profiles(boxes, valid, h, w, sigma_ratio))
 
 
 def _apply_geo_bboxes_only(img, fg: _FgInfo, inv_boxes):
@@ -575,17 +347,17 @@ def _apply_geo_bboxes_only(img, fg: _FgInfo, inv_boxes):
     inverse matrices are gathered per pixel by the precomputed
     strongest-box assignment and fed into the two axis-aligned resampling
     passes — no 2D-indirect gather (which also poisons lax.switch
-    compile times), no per-box loop (measured 13x slower).
+    compile times), no per-box loop.
 
     Divergence note: pass 1 rows are resampled with the matrix of the row
     being read rather than the consuming output pixel; the two differ only
     across box-mask boundaries where the blend weight is already small.
     """
-    img = img.astype(jnp.float32)        # gather path stays f32 (CPU/opt-out)
+    img = img.astype(jnp.float32)        # the warp computes in f32
     h, w = img.shape[0], img.shape[1]
     c = img.shape[-1]
     # row G = identity matrix for the far-from-every-box sentinel id
-    # (pallas_fg.BID_EPS)
+    # (BID_EPS)
     ident = jnp.asarray([[1.0, 0.0, 0.0, 0.0, 1.0, 0.0]], jnp.float32)
     inv_pad = jnp.concatenate([inv_boxes, ident], axis=0)     # (G+1, 6)
     m = inv_pad[fg.best_id.astype(jnp.int32)]                 # (H, W, 6)
@@ -613,290 +385,6 @@ def _apply_geo_bboxes_only(img, fg: _FgInfo, inv_boxes):
     return jnp.clip(jnp.round(out), 0, 255)
 
 
-
-
-def _merged_ctx(fg: _FgInfo, ml_masks, h: int, w: int):
-    """Per-view precompute for the merged depth step: the slot-id map
-    (the ml hard boxes partition the image: slot 0, slot 1, complement)
-    and the per-box id map + kernel presence tables shared by every
-    per-slot warp trio of the view."""
-    n_slots = ml_masks.shape[0] + 1
-    g = fg.boxes.shape[0]
-    slot_id = jnp.full((h, w), n_slots - 1, jnp.int32)
-    for s in range(n_slots - 2, -1, -1):
-        slot_id = jnp.where(ml_masks[s] > 0, s, slot_id)
-    bid = fg.best_id.astype(jnp.int32)
-    ctx = dict(slot_id=slot_id, bid=bid, bidT=jnp.transpose(bid),
-               n_slots=n_slots, g=g, prep_x=None, prep_y=None)
-    if jax.devices()[0].platform != "cpu":
-        from .pallas_warp import merged_prep
-        ctx["prep_x"] = merged_prep(bid, 1, g, 4)
-        ctx["prep_y"] = merged_prep(ctx["bidT"], 1, g, 4)
-    return ctx
-
-
-def _depth_step_merged(img16, ck, od, fg: _FgInfo, mctx, severity: float,
-                       version: str, slot_active, inj=None):
-    """One merged depth step: every slot's sampled op in unconditional
-    fused passes instead of S+1 serial lax.cond + lax.switch executions
-    (measured ~1.25 ms of fixed conditional overhead per execution).
-
-    Exact-equivalence to the per-slot dispatch (_aug_once):
-    - the ml slots partition the image (overlap-rejected hard boxes), so
-      per pixel exactly one slot's op result is selected — the legacy
-      masked accumulation IS a select;
-    - all slots of a depth step read the SAME input image, so the
-      photometric LUT family shares one set of image statistics
-      (autocontrast extrema, equalize histogram — parameter-free ops are
-      identical across slots; posterize/solarize differ only by per-slot
-      scalars, broadcast per pixel through the slot-id map);
-    - every geometric family is a X(p1)*Y(p2)*X(p3) triple of per-row
-      piecewise shifts (rotate = Paeth 3-shear; shear/translate = one
-      axis pass + two zero passes — a zero shift is a bit-exact identity
-      in the lerp kernel), so each slot's drawn geo op runs as ONE
-      unconditional per-slot triple (ops/pallas_warp.py
-      merged_shift_rows) whose is_bb/is_bg flags runtime-gate the kernel
-      work: a bg draw applies one global shift, a bb draw applies the
-      per-box shifts of the locally present boxes, a photometric draw
-      degenerates to a copy. The slot's params apply GLOBALLY before the
-      final per-pixel select — identical content semantics to the legacy
-      dispatch (a one-trio composite over (slot, box) ids was measured
-      to couple cross-slot content through the chained passes: 1.3% of
-      pixels off by >2/255 — rejected). Per-family legacy clip bounds
-      are applied to the shift tables, preserving the saturation
-      behavior of the per-family kernels. The fg-union alpha rides as a
-      4th channel so bg blends use their warped-union map.
-
-    Production RNG: one uniform (G, 3) table per slot replaces the
-    per-branch draws (identical distributions; the stream assignment to
-    branch parameters differs from the legacy dispatch — shared-draw-table
-    injection is unchanged and bit-compatible).
-    Ref workload: oa_mix.py:207-236, bbox_augmentation.py:31-118,
-    augmix.py:83-188.
-    """
-    from .pallas_warp import merged_shift_rows
-    from .photometric import (apply_lut_nibble, equalize_lut_from_hist,
-                              grayscale_l, image_hist256)
-    if img16.dtype == jnp.uint8:       # u8 lanes: kernels take bf16
-        img16 = img16.astype(jnp.bfloat16)
-    h, w = img16.shape[0], img16.shape[1]
-    img = img16.astype(jnp.float32)
-    g = fg.boxes.shape[0]
-    n_slots = mctx["n_slots"]
-    n_photo = 4 if version == "augmix" else 9
-    slot_id = mctx["slot_id"]
-
-    # ---- per-slot draws (same key layout as the slot scan)
-    if inj is not None:
-        lv, sg_t, cn = inj                 # (S, MAX_FG), (S, MAX_FG), (S,)
-        lvl = lv[:, :g]
-        sign = sg_t[:, :g]
-        coin = cn
-    else:
-        u = jax.vmap(lambda k: jax.random.uniform(k, (g, 3)))(ck)
-        lvl = 0.1 + u[..., 0] * (severity - 0.1)
-        sign = jnp.where(u[..., 1] > 0.5, -1.0, 1.0)
-        coin = u[:, 0, 2]
-    lvl0, sign0 = lvl[:, 0], sign[:, 0]                  # (S,) scalar draws
-
-    def px(vals, dtype=jnp.float32):
-        """Broadcast a per-slot scalar tuple to (H, W) via the slot map."""
-        o = jnp.broadcast_to(jnp.asarray(vals[n_slots - 1], dtype), (h, w))
-        for s in range(n_slots - 2, -1, -1):
-            o = jnp.where(slot_id == s, jnp.asarray(vals[s], dtype), o)
-        return o
-
-    op_px = px(od, jnp.int32)
-
-    # ---- photometric family (fused elementwise; eq/sharpness gated)
-    xi = jnp.trunc(jnp.clip(img, 0, 255))
-    xc = jnp.clip(img, 0, 255)
-    lo_hi = xi.reshape(h, w * xi.shape[-1])
-    lo = jnp.min(lo_hi, axis=0).reshape(w, -1).min(axis=0)       # (C,)
-    hi = jnp.max(lo_hi, axis=0).reshape(w, -1).max(axis=0)
-    span = hi - lo
-    scale = 255.0 / jnp.where(span > 0, span, 1.0)
-    ac = jnp.where(span > 0,
-                   jnp.clip(jnp.trunc(xi * scale - lo * scale), 0, 255), xi)
-    any_eq = jnp.any((od == 1) & slot_active)
-    eq = jax.lax.cond(
-        any_eq,
-        lambda x: apply_lut_nibble(x, equalize_lut_from_hist(
-            image_hist256(x))),
-        lambda x: x, xi)
-    bits = jnp.maximum(4 - jnp.floor(lvl0 * 4.0 / 10.0).astype(jnp.int32), 1)
-    pmask = (255 << (8 - bits)) & 255                            # (S,)
-    post = jnp.bitwise_and(xi.astype(jnp.int32),
-                           px(pmask, jnp.int32)[..., None]) \
-        .astype(jnp.float32)
-    thr = (256 - jnp.floor(lvl0 * 256.0 / 10.0).astype(jnp.int32)) \
-        .astype(jnp.float32)
-    sol = jnp.where(xc < px(thr)[..., None], xc, 255.0 - xc)
-    opc = op_px[..., None]
-    photo = jnp.where(opc == 0, ac,
-                      jnp.where(opc == 1, eq,
-                                jnp.where(opc == 2, post, sol)))
-    if version != "augmix":
-        fct = px(lvl0 * 1.8 / 10.0 + 0.1)[..., None]             # enhance f
-        gray = grayscale_l(xc)[..., None]
-        inv = 255.0 - xc
-
-        def blend(degen):
-            return jnp.clip(jnp.trunc(degen + fct * (xc - degen)), 0, 255)
-
-        color = blend(jnp.broadcast_to(gray, xc.shape))
-        mean = jnp.floor(jnp.mean(gray) + 0.5)
-        contrast = blend(jnp.full_like(xc, mean))
-        bright = blend(jnp.zeros_like(xc))
-        any_sharp = jnp.any((od == 8) & slot_active)
-        from .photometric import enhance_sharpness
-
-        def sharp_fn(x):
-            # per-pixel factor: inline the blend with fct (the shared
-            # smooth degenerate is slot-independent)
-            import numpy as _np
-            k = jnp.asarray(_np.array([[1, 1, 1], [1, 5, 1], [1, 1, 1]],
-                                      _np.float32) / 13.0).reshape(1, 1, 3, 3)
-            xt = x.transpose(2, 0, 1)[:, None]
-            sm = jax.lax.conv_general_dilated(
-                xt, k, (1, 1), "SAME",
-                dimension_numbers=("NCHW", "OIHW", "NCHW"))
-            sm = jnp.clip(jnp.floor(sm[:, 0].transpose(1, 2, 0) + 0.5),
-                          0, 255)
-            ri = jnp.arange(h)[:, None, None]
-            ci = jnp.arange(w)[None, :, None]
-            border = (ri == 0) | (ri == h - 1) | (ci == 0) | (ci == w - 1)
-            return jnp.where(border, x, sm)
-
-        sharp_degen = jax.lax.cond(any_sharp, sharp_fn, lambda x: x, xc)
-        sharp = blend(sharp_degen)
-        photo = jnp.where(opc == 4, inv,
-                          jnp.where(opc == 5, color,
-                                    jnp.where(opc == 6, contrast,
-                                              jnp.where(opc == 7, bright,
-                                                        jnp.where(opc == 8,
-                                                                  sharp,
-                                                                  photo)))))
-
-    # ---- geometric family: one X*Y*X trio PER SLOT, cond-gated on the
-    # slot actually drawing a geo op. The gate is EXACT: a photo-drawn
-    # slot's geo_out is never selected (its region has opc < n_photo),
-    # so skipping the trio changes nothing — but saves the 3 Pallas
-    # passes + boundary materializations (the merged path's measured
-    # regression vs the slot dispatch was precisely these unconditional
-    # trios: 132 ms vs ~90 ms chain). E[geo slots/step] = S * 6/n_ops.
-    fam = od - n_photo                                           # (S,)
-    boxes = fg.boxes
-    cxg = (boxes[:, 0] + boxes[:, 2]) / 2.0
-    cyg = (boxes[:, 1] + boxes[:, 3]) / 2.0
-    bwg = boxes[:, 2] - boxes[:, 0] + 1
-    bhg = boxes[:, 3] - boxes[:, 1] + 1
-    ys = jnp.arange(h, dtype=jnp.float32)[:, None]               # (H, 1)
-    xs = jnp.arange(w, dtype=jnp.float32)[:, None]               # (W, 1)
-    # legacy per-family clip bounds (see _pw_pass_x/_pw_pass_y and the
-    # br_bg_* branches) — preserved exactly, including the documented
-    # bboxes-translate saturation on near-image-width boxes
-    msx_bb, msy_bb = 512, 768
-    msx_bgr, msy_bgr = int(0.27 * h / 2) + 4, int(0.50 * w / 2) + 4
-    msx_bgs, msy_bgs = int(0.3 * h) + 4, int(0.3 * w) + 4
-    msx_bgt, msy_bgt = w // 3 + 4, h // 3 + 4
-
-    un = fg.union.astype(jnp.float32)
-    # alpha rides as un*255 and is divided back after the warp — BIT-SAME
-    # as the legacy _bg_blend (which warps un*255), not just equivalent.
-    # x4 rides in the chain lane dtype (bf16 default, see _aug_once).
-    x4 = jnp.concatenate(
-        [img16, (un[..., None] * 255.0).astype(img16.dtype)], axis=-1)
-    cov = fg.cover.astype(jnp.float32)[..., None]
-    # bf16 carry: photo and geo_out are integer-valued (every family
-    # trunc/rounds), so the cast is exact and halves the cond boundary
-    out = photo.astype(jnp.bfloat16)
-    for s in range(n_slots):
-        l_g, s_g = lvl[s], sign[s]
-        rad = jnp.deg2rad(jnp.floor(l_g * 30.0 / 10.0) * s_g)
-        a1, b2 = -jnp.tan(rad / 2.0), jnp.sin(rad)
-        sh = l_g * 0.3 / 10.0 * s_g
-        txb = jnp.floor(l_g * (bwg / 3.0) / 10.0) * s_g
-        tyb = jnp.floor(l_g * (bhg / 3.0) / 10.0) * s_g
-        radB = jnp.deg2rad(jnp.floor(lvl0[s] * 30.0 / 10.0) * sign0[s])
-        a1B, b2B = -jnp.tan(radB / 2.0), jnp.sin(radB)
-        shB = lvl0[s] * 0.3 / 10.0 * sign0[s]
-        txB = jnp.floor(lvl0[s] * (w / 3.0) / 10.0) * sign0[s]
-        tyB = jnp.floor(lvl0[s] * (h / 3.0) / 10.0) * sign0[s]
-        ux = coin[s] < 0.5
-        f = fam[s]
-        is_bb_s = ((f >= 0) & (f < 3) & slot_active[s])[None]
-        is_bg_s = ((f >= 3) & (f < 6) & slot_active[s])[None]
-
-        def geo_fn(acc, s=s, f=f, l_g=l_g, s_g=s_g, a1=a1, b2=b2, sh=sh,
-                   txb=txb, tyb=tyb, a1B=a1B, b2B=b2B, shB=shB, txB=txB,
-                   tyB=tyB, ux=ux, is_bb_s=is_bb_s, is_bg_s=is_bg_s):
-            zH, zW = jnp.zeros((h, g)), jnp.zeros((w, g))
-            zh1, zw1 = jnp.zeros((h, 1)), jnp.zeros((w, 1))
-
-            def sel(fi, cand, acc2, f=f):
-                return jnp.where(f == fi, cand, acc2)
-
-            # bboxes_only shift tables (H/W, G)
-            rot1 = jnp.clip(a1[None, :] * (ys - cyg[None, :]),
-                            -msx_bb, msx_bb)
-            rot2 = jnp.clip(b2[None, :] * (xs - cxg[None, :]),
-                            -msy_bb, msy_bb)
-            p1 = sel(0, rot1, zH)
-            p1 = sel(1, jnp.where(ux, jnp.clip(
-                sh[None, :] * (ys - cyg[None, :]), -msx_bb, msx_bb), zH), p1)
-            p1 = sel(2, jnp.where(ux, jnp.clip(jnp.broadcast_to(
-                txb[None, :], (h, g)), -msx_bb, msx_bb), zH), p1)
-            p2 = sel(0, rot2, zW)
-            p2 = sel(1, jnp.where(ux, zW, jnp.clip(
-                sh[None, :] * (xs - cxg[None, :]), -msy_bb, msy_bb)), p2)
-            p2 = sel(2, jnp.where(ux, zW, jnp.clip(jnp.broadcast_to(
-                tyb[None, :], (w, g)), -msy_bb, msy_bb)), p2)
-            p3 = sel(0, rot1, zH)
-            # bg_only shift columns (H/W, 1)
-            brot1 = jnp.clip(a1B * (ys - h / 2.0), -msx_bgr, msx_bgr)
-            brot2 = jnp.clip(b2B * (xs - w / 2.0), -msy_bgr, msy_bgr)
-            q1 = sel(3, brot1, zh1)
-            q1 = sel(4, jnp.where(ux, jnp.clip(shB * ys, -msx_bgs, msx_bgs),
-                                  zh1), q1)
-            q1 = sel(5, jnp.where(ux, jnp.clip(jnp.broadcast_to(
-                txB, (h, 1)), -msx_bgt, msx_bgt), zh1), q1)
-            q2 = sel(3, brot2, zw1)
-            q2 = sel(4, jnp.where(ux, zw1, jnp.clip(shB * xs,
-                                                    -msy_bgs, msy_bgs)), q2)
-            q2 = sel(5, jnp.where(ux, zw1, jnp.clip(jnp.broadcast_to(
-                tyB, (w, 1)), -msy_bgt, msy_bgt)), q2)
-            q3 = sel(3, brot1, zh1)
-
-            # blend source upcast INSIDE the cond: the boundary operand
-            # stays the bf16 img16 (12 MB) instead of the f32 image
-            imf = img16.astype(jnp.float32)
-            o1 = merged_shift_rows(x4, mctx["bid"], p1, q1, is_bb_s,
-                                   is_bg_s, prep=mctx["prep_x"])
-            o2t = merged_shift_rows(jnp.transpose(o1, (1, 0, 2)),
-                                    mctx["bidT"], p2, q2, is_bb_s, is_bg_s,
-                                    prep=mctx["prep_y"])
-            o2 = jnp.transpose(o2t, (1, 0, 2))
-            wp = merged_shift_rows(o2, mctx["bid"], p3, q3, is_bb_s,
-                                   is_bg_s, prep=mctx["prep_x"])
-            warped, w_un = wp[..., :3], wp[..., 3] / 255.0
-            # blends (identical to _pw_finish / _bg_blend, incl. dtypes:
-            # warped/w_un stay in the lane dtype until the f32 promote)
-            bb_out = jnp.clip(jnp.round(imf * (1.0 - cov) + warped * cov),
-                              0, 255)
-            mnt = jnp.maximum(un, w_un)[..., None]
-            bg_out = jnp.clip(jnp.round(mnt * imf + (1.0 - mnt) * warped),
-                              0, 255)
-            geo_out = jnp.where(f >= 3, bg_out, bb_out)
-            return jnp.where((slot_id == s)[..., None] & (opc >= n_photo),
-                             geo_out.astype(acc.dtype), acc)
-
-        out = jax.lax.cond(is_bb_s[0] | is_bg_s[0], geo_fn,
-                           lambda acc: acc, out)
-    return jnp.clip(jnp.round(out.astype(jnp.float32)),
-                    0, 255).astype(_lane_dtype())
-
-
 def _aug_once(img_io, key, op_idx, fg: _FgInfo, img_shape, severity: float,
               version: str, active=None, inj=None):
     """One reference ``aug()`` call (oa_mix.py:264): the sampled op applied
@@ -907,19 +395,12 @@ def _aug_once(img_io, key, op_idx, fg: _FgInfo, img_shape, severity: float,
     branch executes, so the expensive warp branches cost nothing when a LUT
     op is drawn.
 
-    The image crosses the conditional boundary in bf16: TPU conditionals
-    materialize their operands/results (~16 ms per execution for the f32
-    image — measured dominant); halving the bytes halves that.
-
-    bf16 lanes (round-5): the branch input STAYS bf16 — the chain state
-    is uint8-valued and bf16 represents 0..255 exactly, so every branch
-    read halves. Elementwise photometric ops upcast to f32 inside their
-    fused consumers (free); the Pallas shift kernels load bf16 tiles and
-    upcast in VMEM (identical f32 math, half the HBM traffic). The only
-    divergence vs the f32 path: warp/blend intermediates round to bf16
-    (spacing <= 1.0 below 256) before the final integer round — measured
-    <= ±1/255 against the f32 lanes on-chip. OAMIX_F32_LANES=1 restores
-    the f32 path (A/B + debugging).
+    The image crosses the conditional boundary in the narrow lane dtype
+    (uint8 by default, see ``_lane_dtype``): a conditional may materialize
+    its operands and results, and the chain state is integer-valued
+    0..255, so the narrow lanes are exact. Elementwise photometric ops
+    upcast to f32 inside their fused consumers; the warps compute in f32.
+    OAMIX_LANES=f32 restores the f32 path (A/B + debugging).
     """
     img = img_io.astype(_lane_dtype())
     all_ops = version != "augmix"
@@ -930,11 +411,8 @@ def _aug_once(img_io, key, op_idx, fg: _FgInfo, img_shape, severity: float,
 
         Photometric ops must compute in f32 (weak-typed scalar consts
         would otherwise keep bf16 math, diverging from the host oracle
-        and the merged depth step by a few /255) — but the upcast has to
-        live inside each branch: hoisting it would make the f32 image a
-        switch operand and resurrect the boundary materialization the
-        bf16 lanes removed. The geo branches keep bf16 lanes (their
-        Pallas kernels upcast in VMEM; blends promote via f32 masks)."""
+        by a few /255) — but the upcast has to live inside each branch:
+        hoisting it would make the f32 image a switch operand."""
         return img.astype(jnp.float32)
 
     def lvl_from(k):
@@ -962,10 +440,9 @@ def _aug_once(img_io, key, op_idx, fg: _FgInfo, img_shape, severity: float,
     def _f(k):
         return lvl_from(k) * 1.8 / 10.0 + 0.1
 
-    # bbox geo: ONE BRANCH PER FAMILY so shear/translate pay a single
-    # shift pass (their old shared branch ran the rotate-shaped 3-pass
-    # pipeline with two dead passes). Pallas path default on TPU;
-    # OAMIX_GEO_PW=0 restores the per-pixel gather path.
+    # bbox geo: one branch per family; each is the per-pixel affine
+    # gather (the reference's one bilinear cv2.warpAffine per box, blended
+    # through the strongest-box assignment).
     def _geo_gather(k, family):
         mats = _op_matrices(k, family, fg.boxes, fg.valid, img_shape,
                             severity, is_bg=False, inj=inj)
@@ -973,33 +450,23 @@ def _aug_once(img_io, key, op_idx, fg: _FgInfo, img_shape, severity: float,
         return _apply_geo_bboxes_only(img, fg, inv.reshape(-1, 6))
 
     def br_geo_rot(k):
-        if _use_pw_geo():
-            return _pw_rotate(img, fg, k, severity, inj)
         return _geo_gather(k, 0)
 
     def br_geo_shear(k):
-        if _use_pw_geo():
-            return _pw_shear(img, fg, k, severity, inj)
         return _geo_gather(k, 1)
 
     def br_geo_trans(k):
-        if _use_pw_geo():
-            return _pw_translate(img, fg, k, severity, inj)
         return _geo_gather(k, 2)
 
-    # bg geo: family-specific Pallas shear warps (ops/pallas_warp.py).
-    # The rgb image and the fg-union alpha (x255, matching the legacy
-    # separate-call scaling bit-for-bit) ride ONE 4-channel kernel call:
-    # the global-shift kernel's per-block cost is fixed per pass, so one
-    # 4ch pass beats two (3ch + 1ch) passes of the same total bytes.
+    # bg geo: family-specific separable row-shift warps (ops/row_warp.py).
+    # The rgb image and the fg-union alpha (x255) ride ONE 4-channel warp.
     h_s, w_s = img.shape[0], img.shape[1]
 
     def _bg_blend(warp_fn, k):
-        imgw = _warp_lanes(img)
+        imgw = img.astype(jnp.bfloat16) if img.dtype == jnp.uint8 else img
         un = fg.union.astype(jnp.float32)
-        # alpha rides in the image dtype — a f32 alpha would silently
-        # promote the whole 4-channel concat back to f32 (and a uint8
-        # alpha would trunc-quantize it, so u8 lanes upcast first)
+        # alpha rides in the image dtype (a uint8 alpha would
+        # trunc-quantize it, so u8 lanes upcast to bf16 first)
         x4 = jnp.concatenate(
             [imgw, (un[..., None] * 255.0).astype(imgw.dtype)], axis=-1)
         w4 = warp_fn(x4, k)
@@ -1146,15 +613,7 @@ def _oamix_single(img, gt_boxes, gt_valid, img_shape, key, cfg: Dict,
             fg_boxes, fg_valid)
     best_id, cover, union = _precompute_fg_maps(fg_boxes, fg_valid, h, w,
                                                 sigma_ratio)
-    merged = _use_merged_chain()
-    pw_x = pw_y = None
-    if _use_pw_geo() and not merged:
-        from .pallas_warp import pw_prep
-        bid32 = best_id.astype(jnp.int32)
-        pw_x = pw_prep(bid32, max_fg, 3)
-        pw_y = pw_prep(jnp.transpose(bid32), max_fg, 3)
-    fg = _FgInfo(fg_boxes, fg_valid, scores, best_id, cover, union,
-                 pw_x=pw_x, pw_y=pw_y)
+    fg = _FgInfo(fg_boxes, fg_valid, scores, best_id, cover, union)
 
     # Dirichlet chain weights + all op draws up front
     n_ops = (4 if version == "augmix" else 9) + 6
@@ -1190,11 +649,10 @@ def _oamix_single(img, gt_boxes, gt_valid, img_shape, key, cfg: Dict,
     # multiply-add it replaces (each pixel receives exactly one slot's
     # bf16 value; adding it to a zero f32 accumulator changed nothing)
     # and halves the accumulator traffic while deleting the bf16->f32
-    # materialization at the switch boundary (~20 ms/step measured).
+    # materialization at the switch boundary.
     slot_masks = jnp.concatenate(
         [ml_masks, (1.0 - union_mask)[None]], axis=0) > 0      # (S+1, H, W)
     slot_active = jnp.concatenate([ml_valid, jnp.ones((1,), bool)])
-    mctx = _merged_ctx(fg, ml_masks, h, w) if merged else None
 
     inject = draws is not None
 
@@ -1207,12 +665,6 @@ def _oamix_single(img, gt_boxes, gt_valid, img_shape, key, cfg: Dict,
                      else jax.random.randint(kc, (), 1, 4))
 
         def depth_step(d, img_aug16):
-            if merged:
-                inj_t = ((lv_w[d], sg_w[d], cn_w[d]) if inject else None)
-                return _depth_step_merged(img_aug16, ck_w[d], od_w[d], fg,
-                                          mctx, severity, version,
-                                          slot_active, inj=inj_t)
-
             def slot_body(img_tmp, sx):
                 if inject:
                     ck, od, mask, act, lv, sg, cn = sx

@@ -22,7 +22,6 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 __all__ = [
     "autocontrast", "equalize", "posterize", "solarize", "invert",
@@ -31,36 +30,15 @@ __all__ = [
 ]
 
 
-def _histogram_per_channel(img: jnp.ndarray) -> jnp.ndarray:
-    """(H, W, C) uint8-valued -> (C, 256) counts."""
-    x = jnp.clip(img, 0, 255).astype(jnp.int32)
-    c = x.shape[-1]
-    flat = x.reshape(-1, c).T                                   # (C, N)
-    def hist1(v):
-        return jnp.zeros((256,), jnp.int32).at[v].add(1)
-    return jax.vmap(hist1)(flat)
-
-
-def _apply_lut(img: jnp.ndarray, lut: jnp.ndarray) -> jnp.ndarray:
-    """Apply per-channel LUT (C, 256) to (H, W, C)."""
-    x = jnp.clip(img, 0, 255).astype(jnp.int32)
-    c = x.shape[-1]
-    out = jnp.stack([lut[i][x[..., i]] for i in range(c)], axis=-1)
-    return out.astype(jnp.float32)
-
-
 def autocontrast(img: jnp.ndarray) -> jnp.ndarray:
     """Gather-free: PIL's nonzero-histogram extremes are simply the per
     channel min/max pixel values; the LUT ``clip(trunc(i*scale+offset))`` is
-    applied arithmetically (TPU gathers/scatters are scalar-granularity and
-    slow, so no histogram is built)."""
+    applied arithmetically, so no histogram is built."""
     x = jnp.clip(img, 0, 255)
     xi = jnp.trunc(x)                                           # uint8 value
-    # Two-stage per-channel extrema: a direct (H, W, C)->(C,) reduce keeps
-    # C=3 in the minor (lane) dimension, using 3/128 lanes for the whole
-    # 25 MB pass (measured 26 ms/step in the flagship bench). Reshaping to
-    # (H, W*C) first makes the big pass lane-dense; the (W, C) tail is
-    # negligible. Bitwise-identical: min/max are associative/commutative.
+    # Two-stage per-channel extrema: reduce (H, W*C) over rows first, then
+    # the small (W, C) tail. Bitwise-identical: min/max are associative
+    # and commutative.
     h, w, c = xi.shape
     row = xi.reshape(h, w * c)
     lo = jnp.min(row, axis=0).reshape(w, c).min(axis=0)         # (C,)
@@ -100,11 +78,10 @@ def apply_lut_nibble(x: jnp.ndarray, lut: jnp.ndarray) -> jnp.ndarray:
     Hi/lo nibble one-hots (EXACT, gather-free): with
     x = 16*h + l,  lut[x] = sum_h T_hi[h] * (L @ T_lo)[h]  where
     L = lut.reshape(16, 16). 32 compares + a tiny K=16 matmul per value
-    instead of the 256 compare-FMAs of the old threshold sum (which
-    measured ~26 ms/step — the most expensive OA-Mix op after the
-    warps). Every partial result selects exactly ONE lut entry (the
-    factors are one-hot) and lut values are integers <= 255 (exact in
-    bf16), so the output is bit-identical to a real table lookup."""
+    instead of 256 compare-FMAs. Every partial result selects exactly ONE
+    lut entry (the factors are one-hot) and lut values are integers
+    <= 255 (exact in bf16), so the output is bit-identical to a real
+    table lookup."""
     c = x.shape[-1]
     xi2 = x.reshape(-1, c)                                      # (N, C) f32
     hi_n = jnp.floor(xi2 * (1.0 / 16.0))
@@ -115,7 +92,7 @@ def apply_lut_nibble(x: jnp.ndarray, lut: jnp.ndarray) -> jnp.ndarray:
     lut16 = lut.reshape(c, 16, 16).astype(jnp.bfloat16)         # [c, h, l]
     # m entries are EXACT lut values in bf16 (one-hot selection of
     # integers <= 255), so the bf16 intermediate is lossless and halves
-    # the (N, C, 16) HBM traffic (~190 MB at 2M pixels) vs f32
+    # the (N, C, 16) traffic vs f32
     m = jnp.einsum("ncl,chl->nch", t_lo, lut16,
                    preferred_element_type=jnp.bfloat16)         # (N, C, 16)
     out = jnp.sum(t_hi.astype(jnp.float32) * m.astype(jnp.float32),
@@ -123,20 +100,27 @@ def apply_lut_nibble(x: jnp.ndarray, lut: jnp.ndarray) -> jnp.ndarray:
     return out.reshape(x.shape)
 
 
+def hist256(x: jnp.ndarray) -> jnp.ndarray:
+    """256-bin histogram of ``x`` (any shape) of values in [0, 255]
+    (truncated to integers first) -> (256,) int32 exact counts.
+
+    A compare-and-sum over the bins, which XLA fuses into one reduction.
+    On an H100 it took less time than a nibble one-hot matmul or a
+    scatter-add bincount (PERF.md)."""
+    flat = jnp.trunc(jnp.clip(x.reshape(-1).astype(jnp.float32), 0, 255))
+    bins = jnp.arange(256, dtype=jnp.float32)
+    return jnp.sum(flat[None, :] == bins[:, None], axis=1, dtype=jnp.int32)
+
+
 def image_hist256(img: jnp.ndarray) -> jnp.ndarray:
     """Per-channel 256-bin histogram of uint8-valued (H, W, C) -> (C, 256)
-    int32 (Pallas VMEM-resident nibble-matmul kernel on TPU; the XLA
-    compare-reduce re-reads the image once per bin — ~6 GB HBM traffic
-    at 2M pixels)."""
-    from .pallas_hist import hist256_nibble
-    x = jnp.trunc(jnp.clip(img, 0, 255))
-    return jnp.stack([hist256_nibble(x[..., ch])
-                      for ch in range(x.shape[-1])])
+    int32."""
+    return jnp.stack([hist256(img[..., ch]) for ch in range(img.shape[-1])])
 
 
 def equalize(img: jnp.ndarray) -> jnp.ndarray:
-    """Gather/scatter-free PIL ImageOps.equalize: nibble-matmul
-    histogram (image_hist256) + nibble-matmul LUT apply."""
+    """Gather/scatter-free PIL ImageOps.equalize: compare-sum histogram
+    (image_hist256) + nibble-matmul LUT apply."""
     x = jnp.trunc(jnp.clip(img, 0, 255))                        # (H, W, C)
     lut = equalize_lut_from_hist(image_hist256(x))
     return apply_lut_nibble(x, lut)
@@ -180,8 +164,19 @@ def grayscale_l(img: jnp.ndarray) -> jnp.ndarray:
 
 
 def _blend(degenerate: jnp.ndarray, img: jnp.ndarray, factor) -> jnp.ndarray:
-    out = degenerate + jnp.asarray(factor, jnp.float32) * (img - degenerate)
-    return jnp.clip(jnp.trunc(out), 0, 255)
+    # Pillow rounds the float product before the add. A backend that fuses
+    # the multiply-add (XLA:CPU does) skips that rounding and can move the
+    # truncated result by one level. So the factor is split into two
+    # halves of 12 significant bits: each product with an integer
+    # difference (<= 9 bits) is exact, and their one rounded sum is
+    # Pillow's product on every backend, fused or not.
+    f = jnp.asarray(factor, jnp.float32)
+    f_hi = jax.lax.bitcast_convert_type(
+        jax.lax.bitcast_convert_type(f, jnp.uint32) & jnp.uint32(0xFFFFF000),
+        jnp.float32)
+    diff = img - degenerate
+    prod = f_hi * diff + (f - f_hi) * diff
+    return jnp.clip(jnp.trunc(degenerate + prod), 0, 255)
 
 
 def enhance_color(img: jnp.ndarray, factor) -> jnp.ndarray:
@@ -199,19 +194,17 @@ def enhance_brightness(img: jnp.ndarray, factor) -> jnp.ndarray:
     return _blend(jnp.zeros_like(img), img, factor)
 
 
-_SMOOTH = np.array([[1, 1, 1], [1, 5, 1], [1, 1, 1]], np.float32) / 13.0
-
-
 def enhance_sharpness(img: jnp.ndarray, factor) -> jnp.ndarray:
-    x = jnp.clip(img, 0, 255).astype(jnp.float32)   # conv needs f32 operands
-    c = x.shape[-1]
-    xc = x.transpose(2, 0, 1)[:, None]                          # channels -> batch: (C,1,H,W)
-    k = jnp.asarray(_SMOOTH).reshape(1, 1, 3, 3)
-    sm = jax.lax.conv_general_dilated(
-        xc, k, (1, 1), "SAME", dimension_numbers=("NCHW", "OIHW", "NCHW"))
-    sm = jnp.clip(jnp.floor(sm[:, 0].transpose(1, 2, 0) + 0.5), 0, 255)
-    # PIL's 3x3 filter leaves a 1px border copied from the source image.
+    x = jnp.clip(img, 0, 255).astype(jnp.float32)
     h, w = x.shape[0], x.shape[1]
+    # PIL's SMOOTH filter [[1, 1, 1], [1, 5, 1], [1, 1, 1]] / 13 as plain
+    # adds: the integer tap sum is exact in f32 on every backend (a GPU
+    # convolution may round through TF32 or Winograd and flip the +0.5
+    # rounding), and n/13 stays >= 1/26 away from every rounding edge.
+    p = jnp.pad(x, ((1, 1), (1, 1), (0, 0)))
+    taps = sum(p[dy:dy + h, dx:dx + w] for dy in range(3) for dx in range(3))
+    sm = jnp.clip(jnp.floor((taps + 4.0 * x) / 13.0 + 0.5), 0, 255)
+    # PIL's 3x3 filter leaves a 1px border copied from the source image.
     ri = jnp.arange(h)[:, None, None]
     ci = jnp.arange(w)[None, :, None]
     border = (ri == 0) | (ri == h - 1) | (ci == 0) | (ci == w - 1)

@@ -1,23 +1,23 @@
-"""Static-shape RoIAlign for TPU (replaces mmcv.ops.RoIAlign CUDA kernel).
+"""Static-shape RoIAlign in XLA (replaces the mmcv.ops.RoIAlign CUDA kernel).
 
 The reference extracts 7x7 RoI features with
 ``RoIAlign(output_size=7, sampling_ratio=0, aligned=True)`` (reference
 configs/_base_/models/faster_rcnn_r50_fpn.py:39 via
 mmdet/models/roi_heads/roi_extractors/base_roi_extractor.py:37).
 
-TPU-native design decisions:
+Design decisions:
 - All shapes static: a fixed number of RoIs per call; invalid RoIs are
   processed anyway (garbage-in, masked-out downstream) — branch-free.
 - ``sampling_ratio=0`` means per-RoI adaptive grid (ceil(roi/out)) in the
   CUDA kernel; data-dependent grid sizes defeat XLA, so we use a static
-  ``sampling_ratio`` (default 2), the standard TPU detector convention.
+  ``sampling_ratio`` (default 2).
   Numerics differ slightly from mmcv for large RoIs; training is unaffected.
 - Features are NHWC; the gather is expressed over a flattened (B*H*W, C)
   table so one take covers the batch dimension, and RoIs are chunked through
   ``lax.map`` to bound the transient gather memory.
 
-Gradients flow through the gathers (scatter-add under AD) — no custom VJP
-needed; XLA fuses the 4-tap interpolation.
+``roi_align`` differentiates through its gathers (scatter-add under AD);
+``roi_align_multilevel`` has a hand-written scatter-add backward.
 """
 from __future__ import annotations
 
@@ -142,7 +142,7 @@ def _roi_align_multilevel_impl(feats, rois, output_size: int = 7,
     Instead of running the kernel per level and masking (4x waste), all level
     tables are concatenated into a single (sum_l B*H_l*W_l, C) table and each
     RoI's gather indices are offset into its assigned level's region — the
-    TPU-native replacement for the reference's per-level loop
+    replacement for the reference's per-level loop
     (single_level_roi_extractor.py:89).
 
     Args:
@@ -162,9 +162,9 @@ def _roi_align_multilevel_impl(feats, rois, output_size: int = 7,
     level_off = np.concatenate([[0], np.cumsum(b * hs * ws)[:-1]])
     table = jnp.concatenate([f.reshape(-1, c) for f in feats], axis=0)
     # channel-paired table: row i holds (feat[i], feat[i+1]); one gather per
-    # y-tap then fetches both x-taps (TPU gathers cost per ROW — this halves
-    # them). The +1 neighbor crossing a row boundary is harmless: it is only
-    # read when fx > 0, which implies x0+1 is in-row.
+    # y-tap then fetches both x-taps (half the gathered rows). The +1
+    # neighbor crossing a row boundary is harmless: it is only read when
+    # fx > 0, which implies x0+1 is in-row.
     table_pair = jnp.concatenate(
         [table, jnp.concatenate([table[1:], table[:1]], axis=0)], axis=1)
     scales = np.array([1.0 / s for s in featmap_strides], np.float32)
@@ -222,7 +222,7 @@ def _roi_align_multilevel_impl(feats, rois, output_size: int = 7,
             # mode="clip": indices are in-bounds by construction (coords are
             # clamped above; padded RoIs resolve to level 0 / row 0). The
             # default fill mode materializes a per-element oob select over
-            # the (chunk*S^2, 2C) gather output (~9 ms/step at flagship).
+            # the (chunk*S^2, 2C) gather output.
             vals = jnp.take(table_pair, lin.reshape(-1), axis=0, mode="clip")
             vals = vals.reshape(yi.shape[0], yi.shape[1], x0i.shape[1], 2 * c)
             return vals[..., :c], vals[..., c:]
@@ -246,9 +246,8 @@ def _roi_align_multilevel_impl(feats, rois, output_size: int = 7,
 # ---------------------------------------------------------- custom VJP ----
 #
 # The autodiff transpose of the chunked pair-table gather accumulates a
-# DENSE (sum_l B*H_l*W_l, 2C) gradient buffer once per chunk iteration
-# (~40 ms/step of pure adds on the flagship bench; HLO fusion.3062 inside
-# the while transpose). This hand-written backward recomputes the tap
+# DENSE (sum_l B*H_l*W_l, 2C) gradient buffer once per chunk iteration.
+# This hand-written backward (mmcv's atomic-add design) recomputes the tap
 # indices/weights from the rois (cheap) and issues ONE sparse scatter-add
 # into the BASE (N, C) table — no pair-table gradient, no per-chunk dense
 # accumulation. RoIs get no gradient (the reference CUDA kernel likewise
@@ -309,119 +308,15 @@ def _ml_tap_geometry(rois, output_size, featmap_strides, finest_scale,
             (rows(y1i, x1i), okf * wy * wx))
 
 
-def _roi_align_exact_small(feats, rois, output_size, featmap_strides,
-                           sampling_ratio, finest_scale):
-    """Exact RoIAlign for a SMALL roi subset via per-level corner gathers.
-
-    The chunked gather impl concatenates every level into a channel-paired
-    (sum_l B*H_l*W_l, 2C) table — a ~1.4 GB materialization (~10 ms/step
-    at flagship shapes) that is absurd for the <=256-roi violator passes.
-    Four corner gathers per level on each level's own flat view (free
-    reshape, no copy) cost only O(V * taps * C). Same tap geometry and
-    corner weights as the chunked impl, reassociated (numerically
-    equivalent, not bit-equal: this sums four precomputed weight
-    products where the chunked impl nests lerps)."""
-    out = output_size
-    sr = max(int(sampling_ratio), 1)
-    num_levels = len(feats)
-    b = feats[0].shape[0]
-    c = feats[0].shape[-1]
-    hs = np.array([f.shape[1] for f in feats])
-    ws = np.array([f.shape[2] for f in feats])
-    level_off = np.concatenate([[0], np.cumsum(b * hs * ws)[:-1]])
-    lvl = map_roi_levels(rois, num_levels, finest_scale)
-    taps = _ml_tap_geometry(rois, out, featmap_strides, finest_scale,
-                            sampling_ratio, hs, ws, level_off, b)
-    rshape = taps[0][0].shape                      # (V, S, S)
-    val = jnp.zeros(rshape + (c,), jnp.float32)
-    for l in range(num_levels):
-        flat = feats[l].reshape(-1, c)
-        size = flat.shape[0]
-        sel = (lvl == l)[:, None, None, None]
-        for ri, w in taps:
-            local = jnp.clip(ri - int(level_off[l]), 0, size - 1)
-            v = jnp.take(flat, local.reshape(-1), axis=0,
-                         mode="clip").reshape(rshape + (c,))
-            val = val + jnp.where(
-                sel, w[..., None] * v.astype(jnp.float32), 0.0)
-    val = val.reshape(-1, out, sr, out, sr, c)
-    return val.mean(axis=(2, 4))
-
-
-def _roi_align_forward(feats, rois, output_size, featmap_strides,
-                       sampling_ratio, finest_scale, chunk):
-    """Forward dispatch: pallas window kernel on TPU (exact same bilinear
-    sum as the gather impl, reassociated; ~5x less HBM traffic), chunked
-    pair-table gather elsewhere. ok=0 rois (extreme-aspect windows,
-    sub-window levels) come from a bounded exact gather pass."""
-    import os as _os
-    mode = _os.environ.get("OADG_ROI_FWD", "auto")
-    platform = jax.devices()[0].platform
-    shapes = [(f.shape, f.dtype) for f in feats]
-    grids_fit = all(sh[0][1] >= _WIN_Y and sh[0][2] >= _WIN_X
-                    for sh in shapes)
-    use_pallas = (mode == "pallas"
-                  or (mode == "auto" and platform == "tpu" and grids_fit))
-    if not use_pallas:
-        return _roi_align_multilevel_impl(
-            feats, rois, output_size=output_size,
-            featmap_strides=tuple(featmap_strides),
-            sampling_ratio=sampling_ratio, finest_scale=finest_scale,
-            chunk=chunk)
-
-    from .pallas_roi_bwd import roi_fwd_window_pallas
-    out = output_size
-    b = shapes[0][0][0]
-    hs = np.array([sh[0][1] for sh in shapes])
-    ws = np.array([sh[0][2] for sh in shapes])
-    level_off = np.concatenate([[0], np.cumsum(b * hs * ws)[:-1]])
-    Wy, Wx, meta, compact, fit_levels = _window_meta(
-        rois, out, featmap_strides, finest_scale, sampling_ratio,
-        hs, ws, level_off, shapes)
-    res = roi_fwd_window_pallas([feats[i] for i in fit_levels], meta,
-                                Wy, Wx, out,
-                                interpret=(platform != "tpu"))
-    res = res.astype(jnp.float32)
-
-    # big-window pallas pass for <=256 compacted violators (~3.5% of
-    # proposals) — leaves only span>=64 fine-level rois (<0.1%) to the
-    # exact gather loop below, which then usually runs ZERO iterations.
-    res, remaining = _violator_fwd_pass(
-        feats, rois, res, ~compact, out, featmap_strides,
-        finest_scale, sampling_ratio, hs, ws, level_off, shapes, platform)
-
-    # exact gather pass for the leftovers (bounded, looped). Probed
-    # coverage (probe_roi_windows.py PROBE_COVERAGE=1): 0-1 rois remain
-    # per step after passA/B, so 32 slots nearly always finish in one
-    # iteration — at 1/8th the gather traffic of a 256-slot pass
-    # (the pass ran almost every step and cost ~10 ms at 256).
-    r = rois.shape[0]
-    V = min(32, r)
-
-    def body(state):
-        acc, mask = state
-        _, idx = jax.lax.top_k(mask.astype(jnp.float32), V)
-        sel = mask[idx]
-        sub = _roi_align_exact_small(
-            feats, rois[idx], output_size=out,
-            featmap_strides=tuple(featmap_strides),
-            sampling_ratio=sampling_ratio, finest_scale=finest_scale)
-        acc = acc.at[idx].set(jnp.where(sel[:, None, None, None], sub,
-                                        acc[idx]))
-        return acc, mask & ~jnp.zeros_like(mask).at[idx].set(sel)
-
-    res, _ = jax.lax.while_loop(lambda st: jnp.any(st[1]), body,
-                                (res, remaining))
-    return res
-
-
 @partial(jax.custom_vjp, nondiff_argnums=(2, 3, 4, 5, 6))
 def _roi_align_multilevel_vjp(feats, rois, output_size,
                               featmap_strides, sampling_ratio,
                               finest_scale, chunk):
-    return _roi_align_forward(
-        feats, rois, output_size, tuple(featmap_strides),
-        sampling_ratio, finest_scale, chunk)
+    return _roi_align_multilevel_impl(
+        feats, rois, output_size=output_size,
+        featmap_strides=tuple(featmap_strides),
+        sampling_ratio=sampling_ratio, finest_scale=finest_scale,
+        chunk=chunk)
 
 
 def _ml_fwd(feats, rois, output_size, featmap_strides, sampling_ratio,
@@ -430,248 +325,6 @@ def _ml_fwd(feats, rois, output_size, featmap_strides, sampling_ratio,
                                     featmap_strides, sampling_ratio,
                                     finest_scale, chunk)
     return out, (rois, feats)
-
-
-_WIN = 32       # span criterion per axis (corner span must be < _WIN)
-_WIN_Y = 32     # kernel window rows   (free DMA offset)
-_WIN_X = 40     # kernel window cols: x offsets align down to 8 (sublane
-                # tiling), widening the window by the alignment slack
-
-
-def _ml_window_geometry(rois, output_size, featmap_strides, finest_scale,
-                        sampling_ratio, hs, ws, level_off,
-                        clamp_to_grid: bool = False,
-                        win_y: int = None, win_x: int = None):
-    """Factorized backward geometry: per roi and axis, every bilinear
-    corner of the out*sr sample grid lands in a window of ``_WIN``
-    consecutive pixels whenever the per-axis corner span is < _WIN — true
-    for ~96%+ of proposals under the FPN area mapping (extreme-aspect
-    boxes are the exception; callers route those through a bounded tap
-    pass). The bilinear splat then factorizes exactly as
-        d_window[sy, sx, c] = sum_oy sum_ox Wy[sy, oy] g[oy, ox, c] Wx[sx, ox].
-
-    ``clamp_to_grid``: shift window bases so the full _WIN x _WIN window
-    stays inside the level extent (needs H_l, W_l >= _WIN) — required by
-    the pallas DMA path; slot indices stay exact because the span bound
-    still holds after the shift.
-
-    Returns (Wy, Wx, level, bidx, base_y, base_x, base_rows, row_step,
-    compact): Wy/Wx (R, _WIN, out) f32 slot weights (the /(sr*sr) mean
-    folded into Wx); base_rows/row_step address the flat table; compact
-    (R,) bool marks rois the window represents exactly.
-    """
-    out = output_size
-    sr = max(int(sampling_ratio), 1)
-    num_levels = len(featmap_strides)
-    scales = np.array([1.0 / s for s in featmap_strides], np.float32)
-    lvl = map_roi_levels(rois, num_levels, finest_scale)
-    sc = jnp.asarray(scales)[lvl]
-    fh = jnp.asarray(hs)[lvl].astype(jnp.float32)
-    fw = jnp.asarray(ws)[lvl].astype(jnp.float32)
-    off = jnp.asarray(level_off)[lvl].astype(jnp.int32)
-    fhi = fh.astype(jnp.int32)
-    fwi = fw.astype(jnp.int32)
-    bidx = rois[:, 0].astype(jnp.int32)
-
-    x1 = rois[:, 1] * sc - 0.5
-    y1 = rois[:, 2] * sc - 0.5
-    x2 = rois[:, 3] * sc - 0.5
-    y2 = rois[:, 4] * sc - 0.5
-    bin_w = (x2 - x1) / out
-    bin_h = (y2 - y1) / out
-    frac = (jnp.arange(sr, dtype=jnp.float32) + 0.5) / sr
-    pos = (jnp.arange(out, dtype=jnp.float32)[:, None] + frac[None, :]
-           ).reshape(-1)                                    # (out*sr,)
-
-    def axis(start, binsz, f, fi, win, align=1):
-        xs = start[:, None] + pos[None, :] * binsz[:, None]  # (R, out*sr)
-        okx = (xs > -1.0) & (xs < f[:, None])
-        px = jnp.clip(xs, 0.0, f[:, None] - 1)
-        x0 = jnp.floor(px).astype(jnp.int32)
-        fx = px - x0
-        x1c = jnp.minimum(x0 + 1, fi[:, None] - 1)
-        base = jnp.min(x0, axis=1)
-        if clamp_to_grid:
-            base = (base // align) * align
-            base = jnp.clip(base, 0,
-                            jnp.maximum((fi - win) // align * align, 0))
-        s0 = x0 - base[:, None]
-        s1 = x1c - base[:, None]
-        compact = (jnp.max(s1, axis=1) < win) & (jnp.min(s0, axis=1) >= 0)
-        s0c = jnp.clip(s0, 0, win - 1)
-        s1c = jnp.clip(s1, 0, win - 1)
-        okf = okx.astype(jnp.float32)
-        # W[slot, oy]: one-hot splat of the two corners of each sample,
-        # folded over the sr samples per bin.
-        oh0 = jax.nn.one_hot(s0c, win, dtype=jnp.float32)    # (R, os, W)
-        oh1 = jax.nn.one_hot(s1c, win, dtype=jnp.float32)
-        w = (oh0 * ((1 - fx) * okf)[..., None]
-             + oh1 * (fx * okf)[..., None])                  # (R, os, W)
-        w = w.reshape(w.shape[0], out, sr, win).sum(axis=2)   # (R, out, W)
-        return jnp.swapaxes(w, 1, 2), base, compact           # (R, W, out)
-
-    wy_n = win_y or (_WIN_Y if clamp_to_grid else _WIN)
-    wx_n = win_x or (_WIN_X if clamp_to_grid else _WIN)
-    Wy, base_y, cy = axis(y1, bin_h, fh, fhi, wy_n)
-    Wx, base_x, cx = axis(x1, bin_w, fw, fwi, wx_n,
-                          align=8 if clamp_to_grid else 1)
-    compact = cy & cx
-    base_rows = off + (bidx * fhi + base_y) * fwi + base_x
-    return (Wy, Wx / float(sr * sr), lvl, bidx, base_y, base_x,
-            base_rows, fwi, compact)
-
-
-def _window_meta(rois, out, featmap_strides, finest_scale, sampling_ratio,
-                 hs, ws, level_off, shapes):
-    """Two-class window geometry for the pallas kernels: small (16, 24)
-    where it covers the roi (≈65% of proposals — 2.5x less DMA), full
-    (32, 40) otherwise; rois fitting neither (extreme aspect) or mapped
-    to sub-window levels get ok=0 and take the exact fallback. Returns
-    (Wy (R,32,out), Wx (R,40,out), meta6, compact)."""
-    from .pallas_roi_bwd import WIN_X_S, WIN_Y_S
-    gA = _ml_window_geometry(rois, out, featmap_strides, finest_scale,
-                             sampling_ratio, hs, ws, level_off,
-                             clamp_to_grid=True, win_y=WIN_Y_S,
-                             win_x=WIN_X_S)
-    gB = _ml_window_geometry(rois, out, featmap_strides, finest_scale,
-                             sampling_ratio, hs, ws, level_off,
-                             clamp_to_grid=True)
-    WyA, WxA, lvl, bidx, byA, bxA, _, _, cA = gA
-    WyB, WxB, _, _, byB, bxB, _, _, cB = gB
-    fit_levels = [i for i, sh in enumerate(shapes)
-                  if sh[0][1] >= _WIN_Y and sh[0][2] >= _WIN_X]
-    lvl_remap = np.zeros(len(shapes), np.int32)
-    for j, i in enumerate(fit_levels):
-        lvl_remap[i] = j
-    fits = jnp.asarray([sh[0][1] >= _WIN_Y and sh[0][2] >= _WIN_X
-                        for sh in shapes])[lvl]
-    small = cA & fits
-    compact = (cA | cB) & fits
-    pady = _WIN_Y - WIN_Y_S
-    padx = _WIN_X - WIN_X_S
-    Wy = jnp.where(small[:, None, None],
-                   jnp.pad(WyA, ((0, 0), (0, pady), (0, 0))), WyB)
-    Wx = jnp.where(small[:, None, None],
-                   jnp.pad(WxA, ((0, 0), (0, padx), (0, 0))), WxB)
-    base_y = jnp.where(small, byA, byB)
-    base_x = jnp.where(small, bxA, bxB)
-    meta = (jnp.asarray(lvl_remap)[lvl].astype(jnp.int32), bidx,
-            base_y, base_x, compact.astype(jnp.int32),
-            (~small).astype(jnp.int32))
-    return Wy, Wx, meta, compact, fit_levels
-
-
-# Violator-pass window classes (the ~3.5% of rois whose corner span
-# exceeds the main-pass 32-slot window are EXTREME-ASPECT boxes — under
-# the FPN area mapping w_px*h_px < 784 at a roi's own level, so a wide
-# span on one axis forces a small span on the other; measured at flagship
-# shapes: max y span 57, 99.9%-ile x span 114 of max 156
-# [probe_roi_windows.py]):
-#  - pass A "tall+coarse": (64, 64) full window (y span < 64, x < ~57)
-#    with a (32, 64) small class that covers WHOLE coarse levels (e.g.
-#    the 32x64 stride-32 level at 1024x2048 — any roi there fits).
-#  - pass B "wide": (32, 128) single class (x span < ~121, y < 32).
-# Rois fitting neither (x span > ~121 on a fine level — O(1) per ~10
-# steps) take the exact tap/gather pass.
-_VA_WIN = (64, 64)
-_VA_WIN_S = (32, 64)
-_VB_WIN = (32, 128)
-
-
-def _violator_window_meta(rois, out, featmap_strides, finest_scale,
-                          sampling_ratio, hs, ws, level_off, shapes):
-    """Geometry for BOTH violator window passes on a gathered roi subset.
-
-    Returns (passA, passB, compact) where each pass is ``None`` (no
-    level fits its windows) or a dict with Wy/Wx/meta/handled/fit_levels/
-    small_levels/full_levels ready for the pallas kernels; ``compact``
-    marks rois covered by at least one pass."""
-    geo = {}
-    for wy, wx in (_VA_WIN_S, _VA_WIN, _VB_WIN):
-        geo[(wy, wx)] = _ml_window_geometry(
-            rois, out, featmap_strides, finest_scale, sampling_ratio,
-            hs, ws, level_off, clamp_to_grid=True, win_y=wy, win_x=wx)
-
-    def fits(wy, wx):
-        return [sh[0][1] >= wy and sh[0][2] >= wx for sh in shapes]
-
-    lvl = geo[_VA_WIN][2]
-
-    def build(win, win_s, prev_handled, single_class=False):
-        fS = fits(*win_s)
-        fF = fits(*win)
-        fit_levels = [i for i in range(len(shapes)) if fS[i] or fF[i]]
-        if not fit_levels:
-            return None, prev_handled
-        lvl_remap = np.zeros(len(shapes), np.int32)
-        small_levels, full_levels = [], []
-        for j, i in enumerate(fit_levels):
-            lvl_remap[i] = j
-            if fS[i] and not single_class:
-                small_levels.append(j)
-            if fF[i]:
-                full_levels.append(j)
-        WyS, WxS, _, bidx, byS, bxS, _, _, cS = geo[win_s]
-        WyF, WxF, _, _, byF, bxF, _, _, cF = geo[win]
-        small = cS & jnp.asarray(fS)[lvl] & ~prev_handled
-        if single_class:
-            small = jnp.zeros_like(small)
-        full = cF & jnp.asarray(fF)[lvl] & ~small & ~prev_handled
-        handled = small | full
-        pady, padx = win[0] - win_s[0], win[1] - win_s[1]
-        Wy = jnp.where(small[:, None, None],
-                       jnp.pad(WyS, ((0, 0), (0, pady), (0, 0))), WyF)
-        Wx = jnp.where(small[:, None, None],
-                       jnp.pad(WxS, ((0, 0), (0, padx), (0, 0))), WxF)
-        meta = (jnp.asarray(lvl_remap)[lvl].astype(jnp.int32), bidx,
-                jnp.where(small, byS, byF), jnp.where(small, bxS, bxF),
-                handled.astype(jnp.int32), (~small).astype(jnp.int32))
-        return (dict(Wy=Wy, Wx=Wx, meta=meta, handled=handled, win=win,
-                     win_s=win_s, fit_levels=fit_levels,
-                     small_levels=tuple(small_levels),
-                     full_levels=tuple(full_levels)),
-                prev_handled | handled)
-
-    none = jnp.zeros((rois.shape[0],), bool)
-    passA, covered = build(_VA_WIN, _VA_WIN_S, none)
-    # pass B is single-class: the full (32, 128) window only
-    passB, covered = build(_VB_WIN, _VB_WIN, covered, single_class=True)
-    return passA, passB, covered
-
-
-def _violator_fwd_pass(feats, rois, res, viol, out,
-                       featmap_strides, finest_scale, sampling_ratio,
-                       hs, ws, level_off, shapes, platform):
-    """Run the big-window pallas passes over <=256 compacted violators.
-
-    Returns (res, remaining) where ``remaining`` marks rois still
-    unhandled (x span > ~121 on a fine level — routed to the exact
-    pass, which then usually runs zero iterations)."""
-    from .pallas_roi_bwd import roi_fwd_window_pallas
-    r = rois.shape[0]
-    V = min(256, r)
-    _, vidx = jax.lax.top_k(viol.astype(jnp.float32), V)
-    vsel = viol[vidx]
-    passA, passB, covered = _violator_window_meta(
-        rois[vidx], out, featmap_strides, finest_scale, sampling_ratio,
-        hs, ws, level_off, shapes)
-    handled_any = jnp.zeros_like(vsel)
-    for p in (passA, passB):
-        if p is None:
-            continue
-        handled = p["handled"] & vsel
-        meta = p["meta"][:4] + (handled.astype(jnp.int32), p["meta"][5])
-        sub = roi_fwd_window_pallas(
-            [feats[i] for i in p["fit_levels"]], meta, p["Wy"], p["Wx"],
-            out, win_y=p["win"][0], win_x=p["win"][1],
-            win_y_s=p["win_s"][0], win_x_s=p["win_s"][1],
-            small_levels=p["small_levels"], full_levels=p["full_levels"],
-            interpret=(platform != "tpu")).astype(res.dtype)
-        res = res.at[vidx].set(
-            jnp.where(handled[:, None, None, None], sub, res[vidx]))
-        handled_any = handled_any | handled
-    remaining = viol & ~jnp.zeros_like(viol).at[vidx].set(handled_any)
-    return res, remaining
 
 
 def _ml_bwd(output_size, featmap_strides, sampling_ratio, finest_scale,
@@ -686,131 +339,22 @@ def _ml_bwd(output_size, featmap_strides, sampling_ratio, finest_scale,
     ws = np.array([sh[0][2] for sh in shapes])
     level_off = np.concatenate([[0], np.cumsum(b * hs * ws)[:-1]])
     n_rows = int(np.sum(b * hs * ws))
-    r = rois.shape[0]
 
-    # Table dtype: bf16 when the model runs bf16 (halves the
-    # bandwidth-limited scatter RMW). The deep intra-roi accumulation the
-    # old tap scatter did in bf16 (ADVICE r2: tiny rois stack out*sr*sr
-    # adds per cell) now happens EXACTLY in the f32 matmuls below — only
-    # cross-roi overlap still adds in bf16 (shallow). OADG_ROI_BWD_F32=1
-    # forces a f32 table for strict autodiff-parity checks.
-    import os as _os
-    all_bf16 = all(dt == jnp.bfloat16 for _, dt in shapes)
-    acc_dt = (jnp.bfloat16 if all_bf16
-              and _os.environ.get("OADG_ROI_BWD_F32", "0") != "1"
-              else jnp.float32)
-
-    g32 = g.astype(jnp.float32)
-
-    def tap_scatter_masked(tbl, sub_rois, sub_g, mask):
-        """Exact per-tap scatter for a (possibly gathered) roi subset,
-        weights zeroed where ``mask`` is False."""
-        taps = _ml_tap_geometry(sub_rois, out, featmap_strides,
-                                finest_scale, sampling_ratio, hs, ws,
-                                level_off, b)
-        mf = mask.astype(jnp.float32)
-        gpt = sub_g.astype(jnp.float32) / (sr * sr)
-        gpt = jnp.repeat(jnp.repeat(gpt, sr, axis=1), sr, axis=2)
-        gpt = gpt.reshape(sub_rois.shape[0], out * sr, out * sr, c)
-        rows_all = jnp.concatenate([ri.reshape(-1) for ri, _ in taps])
-        upds_all = jnp.concatenate(
-            [(gpt * (w * mf[:, None, None])[..., None]).reshape(-1, c)
-             for _, w in taps]).astype(tbl.dtype)
-        return tbl.at[rows_all].add(upds_all, mode="drop")
-
-    mode = _os.environ.get("OADG_ROI_BWD", "auto")
-    platform = jax.devices()[0].platform
-    grids_fit = all(sh[0][1] >= _WIN_Y and sh[0][2] >= _WIN_X
-                    for sh in shapes)
-    use_pallas = (mode == "pallas"
-                  or (mode == "auto" and platform == "tpu" and grids_fit))
-
-    if use_pallas:
-        # Per-roi window RMW kernel (ops/pallas_roi_bwd.py): no update
-        # buffer, no scatter serialization. Violators (corner span >=
-        # _WIN on some axis, ~3.5% of bench proposals) accumulate first
-        # through bounded exact tap passes on the flat table.
-        from .pallas_roi_bwd import roi_bwd_window_pallas
-        # two-class window geometry (levels smaller than the DMA window
-        # route their rois through the exact tap pass — a too-large DMA
-        # slice is a trace-time error even when predicated off)
-        Wy, Wx, meta, compact, fit_levels = _window_meta(
-            rois, out, featmap_strides, finest_scale, sampling_ratio,
-            hs, ws, level_off, shapes)
-        d_table = jnp.zeros((n_rows, c), acc_dt)
-        viol = ~compact
-        # violators are ~3.5% of proposals (probe_roi_windows.py); the
-        # big-window pallas RMW passes (tall+coarse / wide classes, see
-        # _violator_window_meta) over <=256 compacted violator slots
-        # handle essentially all of them, so the exact tap-scatter loop
-        # below (the old ~9 ms/step violator path) usually runs ZERO
-        # iterations.
-        V = min(256, r)
-        _, vidx = jax.lax.top_k(viol.astype(jnp.float32), V)
-        vsel = viol[vidx]
-        passA, passB, _ = _violator_window_meta(
-            rois[vidx], out, featmap_strides, finest_scale,
-            sampling_ratio, hs, ws, level_off, shapes)
-        handled_any = jnp.zeros_like(vsel)
-        for p in (passA, passB):
-            if p is not None:
-                handled_any = handled_any | (p["handled"] & vsel)
-        remaining = viol & ~jnp.zeros_like(viol).at[vidx].set(handled_any)
-
-        # 32 exact slots per iteration (not 256): 0-1 rois remain per
-        # step after passA/B (probe_roi_windows.py PROBE_COVERAGE=1),
-        # and the tap scatter's cost is linear in the slot count — the
-        # 256-slot pass cost ~15 ms/step and fired nearly every step.
-        V_ex = min(32, r)
-
-        def any_viol_body(state):
-            tbl, mask = state
-            score = mask.astype(jnp.float32)
-            _, idx = jax.lax.top_k(score, V_ex)
-            sel = mask[idx]
-            tbl = tap_scatter_masked(tbl, rois[idx], g32[idx], sel)
-            return tbl, mask & ~jnp.zeros_like(mask).at[idx].set(sel)
-
-        d_table, _ = jax.lax.while_loop(
-            lambda s: jnp.any(s[1]), any_viol_body, (d_table, remaining))
-        d_feats = []
-        start = 0
-        for (shape, dt) in shapes:
-            cnt = int(np.prod(shape[:3]))
-            d_feats.append(d_table[start:start + cnt].reshape(shape))
-            start += cnt
-        gv = g.astype(acc_dt)[vidx]
-        for p in (passA, passB):
-            if p is None:
-                continue
-            handled = p["handled"] & vsel
-            metaV = p["meta"][:4] + (handled.astype(jnp.int32),
-                                     p["meta"][5])
-            sub = roi_bwd_window_pallas(
-                [d_feats[i] for i in p["fit_levels"]], metaV, gv,
-                p["Wy"], p["Wx"], out,
-                win_y=p["win"][0], win_x=p["win"][1],
-                win_y_s=p["win_s"][0], win_x_s=p["win_s"][1],
-                small_levels=p["small_levels"],
-                full_levels=p["full_levels"],
-                interpret=(platform != "tpu"))
-            for j, i in enumerate(p["fit_levels"]):
-                d_feats[i] = sub[j]
-        if fit_levels:
-            sub = roi_bwd_window_pallas(
-                [d_feats[i] for i in fit_levels], meta, g.astype(acc_dt),
-                Wy, Wx, out, interpret=(platform != "tpu"))
-            for j, i in enumerate(fit_levels):
-                d_feats[i] = sub[j]
-        return ([f.astype(dt) for f, (_, dt) in zip(d_feats, shapes)],
-                jnp.zeros_like(rois))
-
-    # XLA fallback: one combined per-tap scatter (four .at[].add calls
-    # would make four full passes over the ~700 MB table). The update
-    # buffer this materializes is the train step's largest HBM temp —
-    # the pallas path above replaces it on TPU.
-    d_table = tap_scatter_masked(jnp.zeros((n_rows, c), acc_dt), rois, g32,
-                                 jnp.ones((r,), bool))
+    taps = _ml_tap_geometry(rois, out, featmap_strides, finest_scale,
+                            sampling_ratio, hs, ws, level_off, b)
+    gpt = g.astype(jnp.float32) / (sr * sr)
+    gpt = jnp.repeat(jnp.repeat(gpt, sr, axis=1), sr, axis=2)
+    gpt = gpt.reshape(rois.shape[0], out * sr, out * sr, c)
+    rows_all = jnp.concatenate([ri.reshape(-1) for ri, _ in taps])
+    upds_all = jnp.concatenate(
+        [(gpt * w[..., None]).reshape(-1, c) for _, w in taps])
+    # One combined scatter-add over the four bilinear taps (four .at[].add
+    # calls would make four passes over the table). The table accumulates
+    # in float32 whatever the feature dtype: rois overlap, and the
+    # scatter's atomics add them in no fixed order, which a bf16 sum would
+    # round differently from run to run.
+    d_table = jnp.zeros((n_rows, c), jnp.float32).at[rows_all].add(
+        upds_all, mode="drop")
     d_feats = []
     start = 0
     for (shape, dt) in shapes:

@@ -49,7 +49,8 @@ def crop_resize_gray(img: jnp.ndarray, box: jnp.ndarray,
         w = jnp.asarray([0.114, 0.587, 0.299], img.dtype)
     else:
         w = jnp.asarray([0.299, 0.587, 0.114], img.dtype)
-    gray = img @ w                                               # (H, W)
+    # HIGHEST: a GPU may run a float32 dot in TF32, which breaks the pins
+    gray = jnp.dot(img, w, precision=jax.lax.Precision.HIGHEST)  # (H, W)
     x1, y1, x2, y2 = box[0], box[1], box[2], box[3]
     bw = jnp.maximum(x2 - x1, 1).astype(jnp.float32)
     bh = jnp.maximum(y2 - y1, 1).astype(jnp.float32)
@@ -69,8 +70,7 @@ def crop_resize_gray(img: jnp.ndarray, box: jnp.ndarray,
     v1i = jnp.clip(v0i + 1, 0, h - 1)
     # Separable bilinear sampling via ROW slices instead of 2D point
     # gathers: gray[v[:,None], u[None,:]] lowers to 4096 scalar-granularity
-    # gathers from the 8 MB image (measured ~11 ms/step across the 4 taps
-    # in the flagship bench). Row gathers read contiguous (1, W) slices;
+    # gathers from the 8 MB image. Row gathers read contiguous (1, W) slices;
     # the column step then gathers (1, 64) slices from a 512 KB operand.
     # NOTE: lerping v before u reassociates vs the old 2D-gather version
     # (numerically equivalent, not bit-equal — golden parity passes).

@@ -2,14 +2,14 @@
 
 The reference's only multi-device strategy is data parallelism via
 ``MMDistributedDataParallel`` + NCCL allreduce (SURVEY.md §2.3,
-reference mmdet/apis/train.py:113-121, tools/dist_train.sh). TPU-natively
+reference mmdet/apis/train.py:113-121, tools/dist_train.sh). Here
 that whole layer disappears: the train step is jitted over a
 ``jax.sharding.Mesh`` with the batch sharded on the ``data`` axis and params
-replicated; XLA inserts the gradient all-reduce over ICI. Multi-host
+replicated; XLA inserts the gradient all-reduce (NCCL on GPUs). Multi-host
 extends the same mesh over processes (``jax.distributed.initialize``).
 
 A ``model`` axis is part of the mesh shape for forward-compatible tensor
-sharding (unused = size 1 in the OA-DG configs, which fit per-chip).
+sharding (unused = size 1 in the OA-DG configs, which fit on one device).
 """
 from __future__ import annotations
 

@@ -4,7 +4,7 @@ The reference initializes from published torch checkpoints
 (``load_from = .../faster_rcnn_r50_fpn_1x_coco...pth``, reference
 configs/OA-DG/cityscapes/faster_rcnn_r50_fpn_1x_cityscapes.py:57).
 ``convert_torch_state_dict`` maps an mmdet FasterRCNN state_dict onto this
-framework's flax tree:
+framework's parameter tree:
 
 - conv ``weight`` OIHW -> HWIO kernels; linear ``weight`` (out,in) -> (in,out);
 - BN weight/bias -> FrozenBN scale/bias (params), running stats ->
@@ -21,6 +21,42 @@ import re
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
+
+
+def _copy_dicts(tree):
+    """Copy the dict structure of ``tree``, sharing its leaves."""
+    if isinstance(tree, dict):
+        return {k: _copy_dicts(v) for k, v in tree.items()}
+    return tree
+
+
+def to_state_dict(tree):
+    """``tree`` as nested dicts that a checkpoint stores losslessly: lists
+    and tuples become ``{"0": ..., "1": ...}``, NamedTuples (optax states)
+    ``{field: ...}``; :func:`from_state_dict` inverts it with a template."""
+    if isinstance(tree, dict):
+        return {str(k): to_state_dict(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return {f: to_state_dict(getattr(tree, f)) for f in tree._fields}
+    if isinstance(tree, (list, tuple)):
+        return {str(i): to_state_dict(v) for i, v in enumerate(tree)}
+    return tree
+
+
+def from_state_dict(template, state):
+    """Rebuild the containers of ``template`` around the leaves of
+    ``state`` (the output of :func:`to_state_dict`)."""
+    if isinstance(template, dict):
+        return {k: from_state_dict(v, state[str(k)])
+                for k, v in template.items()}
+    if isinstance(template, tuple) and hasattr(template, "_fields"):
+        return type(template)(**{f: from_state_dict(getattr(template, f),
+                                                    state[f])
+                                 for f in template._fields})
+    if isinstance(template, (list, tuple)):
+        return type(template)(from_state_dict(v, state[str(i)])
+                              for i, v in enumerate(template))
+    return state
 
 
 def _set(tree: Dict, path, value):
@@ -158,8 +194,7 @@ def merge_variables(init_variables: Dict, loaded: Dict,
                             f"shape mismatch or missing at {path}/{k}: "
                             f"ckpt {np.shape(v)}")
 
-    import flax
-    mutable = flax.core.unfreeze(out) if hasattr(flax.core, "unfreeze") else out
+    mutable = _copy_dicts(out)
     for col in ("params", "batch_stats"):
         if col in loaded and col in mutable:
             walk(mutable[col], loaded[col], col)

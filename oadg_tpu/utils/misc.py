@@ -33,7 +33,7 @@ def collect_env() -> dict:
         info["Devices"] = ", ".join(str(d) for d in jax.devices())
     except Exception as e:
         info["JAX"] = f"unavailable ({e})"
-    for mod in ("flax", "optax", "numpy", "cv2"):
+    for mod in ("optax", "numpy", "cv2"):
         try:
             m = __import__(mod)
             info[mod] = getattr(m, "__version__", "?")

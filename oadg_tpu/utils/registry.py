@@ -94,7 +94,7 @@ def build_from_cfg(cfg: dict, registry: Registry, default_args: Optional[dict] =
         obj_cls = obj_type
     else:
         raise TypeError(f"type must be str or class, got {type(obj_type)}")
-    args = _filter_linen_kwargs(obj_cls, args)
+    args = _filter_module_kwargs(obj_cls, args)
     try:
         return obj_cls(**args)
     except Exception as e:  # augment the error with context
@@ -113,18 +113,18 @@ _SILENT_DROP = {"out_dim_cont", "init_cfg", "pretrained",
                 "train_cfg", "test_cfg", "num_views", "dtype"}
 
 
-def _filter_linen_kwargs(obj_cls, args: dict) -> dict:
-    """Drop config keys a flax.linen module doesn't declare.
+def _filter_module_kwargs(obj_cls, args: dict) -> dict:
+    """Drop config keys a module doesn't declare.
 
     The mmdet config schema carries many implementation knobs (init_cfg,
     with_avg_pool, out_dim_cont, ...) that the reference's torch classes
-    accept via **kwargs. Linen modules are frozen dataclasses, so unknown
+    accept via **kwargs. Modules are dataclasses, so unknown
     keys are filtered here — once per (class, key) with a warning — instead
     of breaking config compatibility.
     """
     try:
         import dataclasses
-        import flax.linen as nn
+        from .. import nn
     except Exception:
         return args
     if not (inspect.isclass(obj_cls) and issubclass(obj_cls, nn.Module)):

@@ -135,8 +135,8 @@ def test_build_norm_eval_flag_and_momentum_mapping():
 
 def test_train_step_carries_batch_stats():
     """make_train_step returns updated stats and the runner-visible loss."""
-    import flax.linen as nn
     import optax
+    from oadg_tpu import nn
     from oadg_tpu.engine.train_step import make_train_step
 
     class Tiny(nn.Module):
@@ -160,12 +160,30 @@ def test_train_step_carries_batch_stats():
     assert any(float(jnp.abs(l).sum()) > 0 for l in leaf)
 
 
+def _flatten(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        p = f"{prefix}/{k}" if prefix else k
+        out.update(_flatten(v, p) if isinstance(v, dict) else {p: v})
+    return out
+
+
+def _unflatten(flat):
+    tree = {}
+    for p, v in flat.items():
+        *head, leaf = p.split("/")
+        node = tree
+        for k in head:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return tree
+
+
 def test_frozen_bn_fold_matches_unfused_resnet():
     """conv_norm folds the frozen-BN affine into the conv kernel
     (models/layers.py Conv out_scale); the folded forward must equal the
     plain conv->affine sequence to f32 reassociation tolerance, with an
     IDENTICAL parameter tree (paths, shapes, creation order)."""
-    import flax
     from oadg_tpu.models.backbones import resnet as R
     from oadg_tpu.models.layers import Conv
 
@@ -173,7 +191,7 @@ def test_frozen_bn_fold_matches_unfused_resnet():
     x = jax.random.normal(jax.random.PRNGKey(0), (1, 32, 32, 3))
     v0 = m.init(jax.random.PRNGKey(1), x)
     # randomize stats + BN affine so the fold is non-trivial
-    flat = flax.traverse_util.flatten_dict(v0, sep="/")
+    flat = _flatten(v0)
     key = jax.random.PRNGKey(7)
     for p in list(flat):
         k = jax.random.fold_in(key, hash(p) % (2 ** 31))
@@ -184,7 +202,7 @@ def test_frozen_bn_fold_matches_unfused_resnet():
             flat[p] = r
         elif "FrozenBN" in p or "downsample_bn" in p:
             flat[p] = r + 1.0
-    v = flax.traverse_util.unflatten_dict(flat, sep="/")
+    v = _unflatten(flat)
     y_fold = m.apply(v, x)
 
     def unfused(x, feats, k, s, p, norm, dtype, cname, *, dilation=1,

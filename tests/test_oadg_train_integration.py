@@ -96,8 +96,8 @@ def test_oadg_train_two_iters(oadg_setup, tmp_path):
                                    'oamix_boxes']),
     ]
     cfg = Config(dict(
-        model=model, num_views=num_views,
-        data=dict(samples_per_gpu=2, workers_per_gpu=1,
+        model=model, num_views=num_views, gpu_ids=[0, 1],
+        data=dict(samples_per_gpu=1, workers_per_gpu=1,
                   train=dict(type='CocoDataset',
                              ann_file=osp.join(root, "ann.json"),
                              img_prefix=osp.join(root, "imgs"),

@@ -184,3 +184,29 @@ def test_oamix_many_instances_max_fg_cap():
     # on the tail-box pixels (they now participate object-aware)
     diff = np.abs(aug32 - aug16).mean()
     assert diff > 0.1, diff
+
+
+@pytest.mark.parametrize("n_valid", [5, 0])
+def test_fg_maps_match_numpy(n_valid):
+    """best_id / cover / union against a per-box numpy loop over the
+    separable blurred masks; with no valid box every pixel takes the
+    identity sentinel id G."""
+    from oadg_tpu.ops.oamix_device import BID_EPS, fg_maps, fg_profiles
+    h, w, g = 48, 80, 8
+    rng = np.random.RandomState(n_valid)
+    x1, y1 = rng.uniform(0, w * 0.7, g), rng.uniform(0, h * 0.7, g)
+    boxes = np.stack([x1, y1, x1 + rng.uniform(4, w * 0.4, g),
+                      y1 + rng.uniform(4, h * 0.4, g)], 1).astype(np.float32)
+    valid = np.arange(g) < n_valid
+    fx, fy = fg_profiles(jnp.asarray(boxes), jnp.asarray(valid), h, w, 0.3)
+    best_id, cover, union = fg_maps(fx, fy)
+    m = np.asarray(fy)[:, :, None] * np.asarray(fx)[:, None, :]  # (G, H, W)
+    best = m.max(0)
+    np.testing.assert_array_equal(
+        np.asarray(best_id), np.where(best >= BID_EPS, m.argmax(0), g))
+    np.testing.assert_allclose(np.asarray(cover, np.float32),
+                               1.0 - np.prod(1.0 - m, 0), atol=2 ** -8)
+    np.testing.assert_allclose(np.asarray(union, np.float32), best,
+                               atol=2 ** -8)
+    if n_valid == 0:
+        assert np.all(np.asarray(best_id) == g)

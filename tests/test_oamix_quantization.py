@@ -196,7 +196,7 @@ def test_composed_honest_own_masks(seed):
 
 
 def test_composed_bg_geo(seed=4):
-    """Composed chains drawing bg-geometry ops (whole-image pallas warps
+    """Composed chains drawing bg-geometry ops (whole-image row-shift warps
     vs cv2.warpAffine) under shared draws + shared masks: the bg
     translate/shear kernels were built for cv2 parity, so the composed
     output stays within a small tolerance (the host quantizes the warped
@@ -239,25 +239,19 @@ def _overlap_band(reach: int, gt=None):
     return dil.sum(axis=0) >= 2
 
 
-@pytest.mark.parametrize("geo_pw", ["0", "force"])
 @pytest.mark.parametrize("ops,tol_frac", [((10, 11), 0.995),  # shear/trans
                                           ((9,), 0.99)])      # rotate
-def test_composed_bbox_geo(monkeypatch, geo_pw, ops, tol_frac):
-    """VERDICT r4 item 5: per-box (bboxes_only) geometric chains pinned
-    at quantization tolerance with the overlap-blend bands masked.
+def test_composed_bbox_geo(ops, tol_frac):
+    """Per-box (bboxes_only) geometric chains pinned at quantization
+    tolerance with the overlap-blend bands masked.
 
-    Both device paths are pinned: the XLA gather path (OAMIX_GEO_PW=0,
-    the CPU default) and the production piecewise-shift math
-    (OAMIX_GEO_PW=force routes the pw 3-shear/blend semantics through
-    its XLA fallback). Shared draws + shared masks isolate the warp
-    arithmetic. The GT layout is two compact, well-separated boxes so
-    the blurred-mask tails don't blanket the whole 256x384 fixture;
-    outside the documented overlap bands (where the host's sequential
-    blend reads already-blended content) outputs must agree to +-2/255
-    on >= tol_frac of pixels (rotate composes 3 lerp stages on the pw
-    path vs one bilinear on the host — slightly looser).
+    The device path is the per-pixel affine gather. Shared draws + shared
+    masks isolate the warp arithmetic. The GT layout is two compact,
+    well-separated boxes so the blurred-mask tails don't blanket the
+    whole 256x384 fixture; outside the documented overlap bands (where
+    the host's sequential blend reads already-blended content) outputs
+    must agree to +-2/255 on >= tol_frac of pixels.
     Ref: mmdet/datasets/pipelines/bbox_augmentation.py:31-118."""
-    monkeypatch.setenv("OAMIX_GEO_PW", geo_pw)
     img = _structured_image()
     gt2 = np.array([[40.0, 30.0, 100.0, 80.0],
                     [260.0, 170.0, 340.0, 230.0]], np.float32)
@@ -278,7 +272,7 @@ def test_composed_bbox_geo(monkeypatch, geo_pw, ops, tol_frac):
         f"band masked too much: {band.mean():.3f}")
     frac = float(np.mean(ok <= 2.0))
     assert frac >= tol_frac, (
-        f"geo_pw={geo_pw} ops={ops}: within +-2/255 outside bands: "
+        f"ops={ops}: within +-2/255 outside bands: "
         f"{frac:.5f} (band {band.mean():.3f} of image)")
 
 

@@ -81,6 +81,25 @@ def test_enhance_ops_match_pil(factor):
                     ImageEnhance.Sharpness(pil).enhance(factor), tol=1)
 
 
+@pytest.mark.parametrize("name", ["Color", "Contrast", "Brightness",
+                                  "Sharpness"])
+def test_enhance_blend_bit_exact_vs_pil(name):
+    """Pillow rounds factor*(img - degenerate) before adding; the blend
+    keeps that rounding even where the backend fuses the multiply-add, so
+    at factors whose product is not exact in f32 the output is bit-equal
+    to Pillow (a fused multiply-add moved ~0.4% of values by one level)."""
+    ops = dict(Color=enhance_color, Contrast=enhance_contrast,
+               Brightness=enhance_brightness, Sharpness=enhance_sharpness)
+    img = np.random.RandomState(7).randint(3, 251, (96, 128, 3)).astype(
+        np.uint8)
+    for factor in (1.6, 1.7777777, 0.3):
+        want = np.asarray(getattr(ImageEnhance, name)(
+            Image.fromarray(img)).enhance(factor))
+        got = np.asarray(ops[name](to_j(img), factor))
+        np.testing.assert_array_equal(got, want.astype(np.float32),
+                                      err_msg=f"{name} factor={factor}")
+
+
 @pytest.mark.parametrize("angle,center", [(17.0, (28.0, 20.0)), (-30.0, (10.0, 5.0))])
 def test_warp_rotate_matches_cv2(angle, center):
     m_cv = cv2.getRotationMatrix2D(center, angle, 1.0)
@@ -262,10 +281,9 @@ def test_roi_align_multilevel_vjp_matches_autodiff():
 
 
 def test_roi_align_bf16_backward_close_to_f32():
-    """With bf16 features the backward accumulates in bf16 (the model's
-    compute dtype; halves the scatter bytes). Must stay within bf16
-    quantization tolerance of the f32 accumulation."""
-    import os
+    """With bf16 features the backward still accumulates in an f32 table
+    and rounds once to bf16 at the end: it must equal the f32-feature
+    gradient up to that one rounding."""
     import jax
     from oadg_tpu.ops.roi_align import roi_align_multilevel
     rng = np.random.RandomState(3)
@@ -284,13 +302,13 @@ def test_roi_align_bf16_backward_close_to_f32():
                                             2, 56, chunk=3) * g_out)
 
     g16 = jax.grad(loss)(list(feats16))
-    os.environ["OADG_ROI_BWD_F32"] = "1"
-    try:
-        g32 = jax.grad(jax.jit(loss))(list(feats16))
-    finally:
-        del os.environ["OADG_ROI_BWD_F32"]
+    g32 = jax.grad(jax.jit(loss))([f.astype(jnp.float32) for f in feats16])
     for a, b in zip(g16, g32):
+        assert a.dtype == jnp.bfloat16
         a = np.asarray(a, np.float32)
         b = np.asarray(b, np.float32)
         scale = max(np.abs(b).max(), 1e-3)
         assert np.max(np.abs(a - b)) / scale < 2e-2
+        # one bf16 rounding of the f32 sum (the two sums may add in
+        # different orders, so a value on a rounding edge may go either way)
+        np.testing.assert_allclose(a, b, rtol=2 ** -8, atol=1e-6)

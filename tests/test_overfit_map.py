@@ -147,8 +147,9 @@ test_pipeline = [
              dict(type='Collect', keys=['img']),
          ])
 ]
+gpu_ids = [0, 1, 2, 3]
 data = dict(
-    samples_per_gpu=4, workers_per_gpu=1,
+    samples_per_gpu=1, workers_per_gpu=1,
     train=dict(type='RepeatDataset', times={repeat},
                dataset=dict(type='CocoDataset', ann_file='{root}/ann.json',
                             img_prefix='{root}/imgs',

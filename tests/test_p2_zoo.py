@@ -5,8 +5,7 @@ fake batches, forward_test).
 Each case is compile-heavy (~1-4 min on the 1-vCPU host), so the full sweep
 is opt-in: ``OADG_ZOO_TESTS=1 pytest tests/test_p2_zoo.py``. A single
 representative case (FSAF) always runs to keep the wiring covered in the
-default suite. The same drives were exercised on the real TPU chip via the
-.drive scripts during development.
+default suite.
 """
 import os
 

@@ -1,15 +1,10 @@
-"""hist256 (ops/pallas_hist.py) — the equalize histogram kernel.
-
-CPU runs the XLA fallback; the Pallas path is exercised on-chip (validated
-bit-exact vs numpy bincount and PIL equalize on TPU v5e)."""
-import sys, os
-
+"""hist256 (ops/photometric.py) — the equalize histogram: exact integer
+counts against numpy's bincount."""
 import numpy as np
+
 import jax.numpy as jnp
 
-sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-
-from oadg_tpu.ops.pallas_hist import hist256
+from oadg_tpu.ops.photometric import hist256, image_hist256
 
 
 def test_hist256_matches_bincount():
@@ -19,9 +14,16 @@ def test_hist256_matches_bincount():
     ref = np.bincount(
         np.trunc(np.clip(x.reshape(-1), 0, 255)).astype(np.int64),
         minlength=256)
-    assert h.shape == (256,)
+    assert h.shape == (256,) and h.dtype == np.int32
     np.testing.assert_array_equal(h, ref)
     assert h.sum() == x.size
+    img = rng.randint(0, 256, (40, 64, 3)).astype(np.float32)
+    per_channel = np.asarray(image_hist256(jnp.asarray(img)))
+    for ch in range(3):
+        np.testing.assert_array_equal(
+            per_channel[ch],
+            np.bincount(img[..., ch].astype(np.int64).ravel(),
+                        minlength=256))
 
 
 def test_hist256_empty_bins_and_saturation():

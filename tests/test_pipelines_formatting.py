@@ -33,7 +33,7 @@ def _results(h=32, w=48):
 
 def test_default_format_bundle_types():
     out = DefaultFormatBundle()(_results())
-    assert out["img"].dtype == np.float32           # HWC stays (TPU NHWC)
+    assert out["img"].dtype == np.float32           # HWC stays (NHWC)
     assert out["img"].ndim == 3 and out["img"].shape[-1] == 3
     assert out["gt_bboxes"].dtype == np.float32
     assert out["gt_bboxes"].shape == (1, 4)

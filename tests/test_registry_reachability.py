@@ -32,7 +32,7 @@ NON_REGISTRY_TYPES = {
     "BN", "SyncBN", "GN", "LN", "IN", "MMSyncBN",
     "Conv2d", "ConvWS", "DCN", "DCNv2", "ConvAWS", "SAC",
     "ReLU", "LeakyReLU", "Swish", "SiLU", "GELU", "HSwish", "HSigmoid",
-    # init cfgs (flax initializers handled inline)
+    # init cfgs (initializers handled inline)
     "Xavier", "Normal", "Kaiming", "Uniform", "Pretrained", "Constant",
     # match costs (core/bbox/hungarian.py builds these inline)
     "ClassificationCost", "BBoxL1Cost", "IoUCost", "FocalLossCost",

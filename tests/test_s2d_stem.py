@@ -4,11 +4,11 @@ Must be numerically equivalent to the plain conv (same param shape/path,
 reference mmdet/models/backbones/resnet.py stem) and fall back cleanly on
 odd extents.
 """
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from oadg_tpu import nn
 from oadg_tpu.models.layers import Conv
 
 

@@ -1,8 +1,7 @@
 """Benchmark the HOST input pipeline end-to-end (disk -> static batch).
 
-Answers the round-2 verdict's open question: the device step sustains
-~9-10 samples/s/chip, but nothing demonstrated the host loader (JPEG
-decode + Resize + Flip + Normalize + Pad + static collate) keeps up.
+Answers whether the host loader (JPEG decode + Resize + Flip + Normalize
++ Pad + static collate) keeps up with the device step.
 This tool generates synthetic Cityscapes-resolution JPEGs (2048x1024) +
 COCO annotations on disk, builds the flagship train pipeline (with
 on-device OA-Mix, so the host does exactly what it does in a real run),

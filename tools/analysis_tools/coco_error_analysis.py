@@ -1,4 +1,4 @@
-"""COCO error analysis (TPU-native analog of reference
+"""COCO error analysis (analog of reference
 tools/analysis_tools/coco_error_analysis.py:236-309).
 
 Decomposes per-category precision into the classic seven error bands

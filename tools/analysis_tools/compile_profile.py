@@ -1,7 +1,7 @@
 """Break the flagship train-step startup cost into trace / lower / compile.
 
 The driver-visible "compile_seconds" in bench.py covers everything from
-dispatch to the first result: Python tracing of the step (flax module
+dispatch to the first result: Python tracing of the step (module
 apply + OA-Mix + losses), jaxpr->StableHLO lowering, XLA compilation, and
 the first execution. The persistent compilation cache only helps the XLA
 part; trace+lowering are Python and repaid on every process start. This
@@ -21,8 +21,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_oadg")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 10)
+from oadg_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 
 def main():

@@ -1,7 +1,7 @@
 """Measure cold-compile time of pipeline pieces in isolation (the
 flagship step's compile cost is a round-2 verdict item). Usage:
   python tools/analysis_tools/compile_time_probe.py preprocess|model
-Env: OAMIX_GEO_PW=0/1, BENCH_H/W/BATCH as bench.py.
+Env: BENCH_H/W/BATCH as bench.py.
 Uses AOT lower().compile() with the persistent cache DISABLED so the
 number is a true cold compile."""
 import os
@@ -39,7 +39,7 @@ def main():
         t1 = time.perf_counter()
         compiled = lowered.compile()
         t2 = time.perf_counter()
-        print(f"preprocess (OAMIX_GEO_PW={os.environ.get('OAMIX_GEO_PW','<default>')}): "
+        print(f"preprocess: "
               f"trace+lower {t1-t0:.1f}s, compile {t2-t1:.1f}s")
     else:
         from oadg_tpu.engine.optim import build_lr_schedule, build_optimizer

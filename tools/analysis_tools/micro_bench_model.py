@@ -11,8 +11,9 @@ sys.path.insert(0, osp.dirname(osp.dirname(osp.dirname(osp.abspath(__file__)))))
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_oadg")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 10)
+from oadg_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 import jax.numpy as jnp
 import numpy as np
 

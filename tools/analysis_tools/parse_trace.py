@@ -3,10 +3,10 @@
 Usage:
     python tools/analysis_tools/parse_trace.py /tmp/jaxprof [--top 30]
 
-Pairs with ProfilerHook (core/hook/hooks.py) — the TPU-native analog of the
+Pairs with ProfilerHook (core/hook/hooks.py) — the analog of the
 reference's benchmark/profile utilities: instead of wall-clock prints, it
 attributes step time to actual fused XLA ops (fusions, whiles, sorts,
-convolutions), which is what you optimize on TPU.
+convolutions), which is what you optimize.
 """
 import argparse
 import collections

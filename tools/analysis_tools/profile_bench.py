@@ -1,6 +1,6 @@
 """Profile the flagship bench step: capture a jax.profiler device trace of
 a few steady-state train steps (same setup as bench.py) and print the top
-XLA ops. Knobs: BENCH_* envs from bench.py, OAMIX_GEO_PW, PROF_DIR,
+XLA ops. Knobs: BENCH_* envs from bench.py, PROF_DIR,
 PROF_NO_PREPROCESS=1 to profile the model-only step."""
 import os
 import os.path as osp
@@ -11,8 +11,9 @@ sys.path.insert(0, osp.dirname(osp.dirname(osp.dirname(osp.abspath(__file__)))))
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_oadg")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 10)
+from oadg_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 import jax.numpy as jnp
 import numpy as np
 

@@ -1,4 +1,4 @@
-"""Ahead-of-time model export (the TPU-native analog of the reference's
+"""Ahead-of-time model export (the analog of the reference's
 tools/deployment/pytorch2onnx.py): serializes the jitted inference function
 to StableHLO via jax.export, reloadable without the Python model code.
 """

@@ -1,5 +1,5 @@
 """Evaluate an AOT-exported (StableHLO) model on a dataset — the
-TPU-native analog of reference tools/deployment/test.py (which scores an
+Analog of reference tools/deployment/test.py (which scores an
 ONNX/TensorRT export with the same metrics as tools/test.py).
 
 The export carries no Python model code: detections come from

@@ -1,5 +1,5 @@
 #!/usr/bin/env bash
-# Reference-compatible launcher shim. On TPU a single process drives the
+# Reference-compatible launcher shim. A single process drives the
 # whole mesh (jax.distributed for multi-host), so this simply forwards.
 CONFIG=$1
 GPUS=$2   # accepted for CLI parity; the mesh size comes from the runtime

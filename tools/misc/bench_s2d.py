@@ -1,7 +1,7 @@
-"""Micro-bench: stem space-to-depth formulations on the real chip.
+"""Micro-bench: stem space-to-depth formulations on the device.
 
-The flagship profile attributes ~18 ms/step to the s2d reshape+transpose
-feeding _S2DStemConv (layers.py). Candidates must be mathematically
+Times the s2d reshape+transpose feeding _S2DStemConv (layers.py) in
+candidate forms. Candidates must be mathematically
 identical stems (same 7x7/s2 result); we time transform+conv end to end.
 """
 import os
@@ -11,7 +11,9 @@ import time
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", ".."))
 import jax
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_oadg")
+from oadg_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 import jax.numpy as jnp
 import numpy as np
 

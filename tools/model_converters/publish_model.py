@@ -1,4 +1,4 @@
-"""Prepare a trained checkpoint for publication (TPU-native analog of
+"""Prepare a trained checkpoint for publication (analog of
 reference tools/model_converters/publish_model.py:17-34).
 
 Reference behavior: load the .pth, delete the optimizer state, re-save,

@@ -1,5 +1,5 @@
 #!/usr/bin/env bash
-# Reference-compatible SLURM launcher shim: on TPU pods, launch one python
+# Reference-compatible SLURM launcher shim: on multi-host clusters, launch one python
 # process per host; jax.distributed.initialize() picks up the SLURM env.
 PARTITION=$1
 JOB_NAME=$2

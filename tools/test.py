@@ -10,6 +10,7 @@ sys.path.insert(0, osp.dirname(osp.dirname(osp.abspath(__file__))))
 from oadg_tpu.apis.train import _static_hw_from_pipeline
 from oadg_tpu.config import Config, DictAction
 from oadg_tpu.data import build_dataloader, build_dataset
+from oadg_tpu.utils.compile_cache import enable_compile_cache
 
 
 def parse_args():
@@ -69,6 +70,7 @@ def build_test_loader(cfg, test_cfg=None):
 
 def main():
     args = parse_args()
+    enable_compile_cache()
     cfg = Config.fromfile(args.config)
     if args.cfg_options:
         cfg.merge_from_dict(args.cfg_options)

@@ -1,4 +1,4 @@
-"""Training CLI (reference tools/train.py, same flags; TPU-native engine).
+"""Training CLI (reference tools/train.py, same flags; JAX engine).
 
 Usage: python tools/train.py CONFIG [--work-dir D] [--resume-from CKPT]
        [--auto-resume] [--seed N] [--cfg-options k=v ...]
@@ -16,6 +16,7 @@ from oadg_tpu.data import build_dataset
 from oadg_tpu.models import build_detector
 from oadg_tpu.apis import init_random_seed, set_random_seed, train_detector
 from oadg_tpu.engine.runner import get_root_logger
+from oadg_tpu.utils.compile_cache import enable_compile_cache
 
 
 def parse_args():
@@ -33,12 +34,14 @@ def parse_args():
                    help="accepted for reference-CLI compatibility; the mesh "
                         "replaces process launchers")
     p.add_argument("--local_rank", type=int, default=0)
-    p.add_argument("--gpu-id", type=int, default=0)
+    p.add_argument("--gpu-id", type=int, default=None,
+                   help="train on this one device (default: every device)")
     return p.parse_args()
 
 
 def main():
     args = parse_args()
+    enable_compile_cache()
     # Multi-host bring-up (reference tools/train.py:129 init_dist): when a
     # launcher environment is present the global mesh spans every host.
     from oadg_tpu.parallel.mesh import init_distributed
@@ -60,6 +63,8 @@ def main():
     os.makedirs(cfg["work_dir"], exist_ok=True)
     cfg["resume_from"] = args.resume_from or cfg.get("resume_from")
     cfg["auto_resume"] = args.auto_resume
+    if args.gpu_id is not None:
+        cfg["gpu_ids"] = [args.gpu_id]
 
     logger = get_root_logger(osp.join(cfg["work_dir"],
                                       f"{int(time.time())}.log"))
